@@ -1,0 +1,23 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their plain PyTorch
+versions, for the paper's hot spots on the join and group-by path:
+
+  radix_partition  per-tile digit histograms and stable partition ranks,
+                   composed into the sort-free multi-pass partition planner
+  hash_probe       co-partition probe (build block staged in shared memory)
+  gather           GFTR clustered gather of 4- and 8-byte elements
+
+Sources live in `repro_torch/csrc/`, are compiled by nvcc at first use
+(`_build`), and are loaded with ctypes. A CUDA tensor runs the kernel, a CPU
+tensor the plain version in `ref`.
+"""
+from . import ops, ref
+from .gather import clustered_gather
+from .hash_probe import layout_probe_blocks
+from .radix_partition import block_histograms, partition_plan, partition_ranks
+
+__all__ = [
+    "ops", "ref",
+    "block_histograms", "partition_ranks", "partition_plan",
+    "layout_probe_blocks",
+    "clustered_gather",
+]

@@ -1,0 +1,45 @@
+"""Shared constants and helpers for the Hopper kernels and their plain twins.
+
+Conventions:
+  * Padding slots in digit arrays carry PAD_DIGIT (< 0). Kernels and plain
+    versions exclude them from histograms and ranks by construction.
+  * Which arm runs is decided by the tensor's device (`resolve_impl`): a CUDA
+    tensor gets the hand-written kernel, a CPU tensor the plain PyTorch
+    version, and asking for the kernel on a CPU tensor raises. There is no
+    fallback from a failing kernel to the plain arm.
+  * Every kernel wrapper adds one to its entry in `LAUNCHES` where it
+    launches its kernel, and nowhere else (`ops.launch_counts`).
+"""
+from __future__ import annotations
+
+import torch
+
+# The fill value for padded digit slots.
+PAD_DIGIT = -1
+# Sentinel for padded / invalid key slots. Valid keys must be >= 0.
+KEY_SENTINEL = -1
+
+IMPLS = ("torch", "cuda")
+
+# One launch counter per hand-written kernel.
+KERNELS = ("block_histograms", "partition_ranks", "hash_probe", "clustered_gather")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def resolve_impl(impl: str | None, *tensors: torch.Tensor) -> str:
+    """Arm for a dispatch site: None picks 'cuda' for CUDA tensors and
+    'torch' otherwise; 'cuda' on a tensor that is not on a CUDA device
+    raises instead of silently running the plain arm."""
+    if impl is None:
+        return "cuda" if tensors[0].is_cuda else "torch"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; allowed: {'/'.join(IMPLS)}")
+    if impl == "cuda" and not all(t.is_cuda for t in tensors):
+        raise ValueError("impl='cuda' needs CUDA tensors; got a tensor on "
+                         f"{[str(t.device) for t in tensors if not t.is_cuda][0]}")
+    return impl
+

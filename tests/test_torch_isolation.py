@@ -1,0 +1,46 @@
+"""The PyTorch port stands alone: neither the package nor chip_smoke.py
+imports JAX or the JAX package."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    code = ("import sys\n"
+            "import repro_torch, repro_torch.core, repro_torch.kernels, repro_torch.data\n"
+            "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_sources_import_no_jax_and_no_reference(path):
+    bad = [m for m in _imports(path) if _forbidden(m)]
+    assert not bad, f"{path.name} imports {bad}"
