@@ -41,7 +41,10 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-INT32_OPS_PER_S = 67e12  # H100 SXM 32-bit peak outside the tensor cores
+# H100 SXM int32 compares: the 67 TFLOP/s float32 peak counts an FMA as two
+# operations on 128 lanes per SM; int32 runs on 64 lanes per SM, one
+# operation each, so a quarter of it
+INT32_OPS_PER_S = 67e12 / 4
 N_GROUPS = 15_000_000
 AGGS = {"s1": "sum", "r1": "max", "r2": "count"}
 # the partition plan runs 3 passes per join side (2^18 + 1 partitions) and
@@ -338,12 +341,20 @@ def main() -> None:
         v, h = ref.hash_probe_blocks(bkeys, offp, pk.reshape(-1), part.repeat_interleave(cap))
         return v.reshape(B, cap), h.reshape(B, cap)
 
-    # compares the data needs: up to the first hit, the whole block on a miss
+    # compares the data needs: up to the first hit, the whole block on a miss.
+    # Bytes the data needs: each probe key read and its vid and hit written
+    # once, each build key and partition offset read once. The padded layout
+    # the kernel is given moves more: every slot of every sub-block and of
+    # every build block.
     slot = vid - offp[part][:, None]
     nops = int(torch.where(hit.bool(), slot + 1, torch.where(pk != -1, cap, 0)).sum())
+    padded_bytes = 4 * (bkeys.numel() + P + pk.numel() + B + 2 * vid.numel())
+    log(f"hash_probe padded layout: {B} sub-blocks of {cap} slots, "
+        f"{int((pk != -1).sum())} probe keys; padded bytes={padded_bytes} "
+        f"bound {padded_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms")
     record("hash_probe", [vid, hit], list(probe_plain()),
            lambda: kprobe.hash_probe(bkeys, offp, pk, part), probe_plain, None,
-           4 * (bkeys.numel() + P + pk.numel() + B + 2 * vid.numel()), nops)
+           4 * (3 * n_s + n_r + P), nops)
     check(int(hit.sum()) == n_s, "the probe missed rows of a match-ratio-1 join")
     del pk, part, vid, hit, slot
 

@@ -17,8 +17,6 @@ import time
 import torch
 
 from ..kernels import ops as kops
-from ..kernels import ref as kref
-from ..kernels.common import resolve_impl
 from . import primitives as prim
 from .table import KEY_SENTINEL, Table
 
@@ -120,21 +118,6 @@ def build_blocks(keys_part: torch.Tensor, off: torch.Tensor, sz: torch.Tensor, c
 
 
 # ---------------------------------------------------------------------------
-# Match finding
-# ---------------------------------------------------------------------------
-def probe_pk_fk(bkeys, off_r, probe_keys, probe_digits, chunk=8192):
-    """For each probe row, its unique match in the build block of its
-    co-partition, chunk by chunk. Returns (vid_r, matched), clustered in
-    probe order; vid_r is -1 where nothing matched (the reference gives
-    off_r[part] there; `compact` drops those rows either way). Sentinel rows
-    carry digit P (no build block) and are clipped to a real block; the
-    sentinel guard keeps them from matching."""
-    part = probe_digits.clamp(max=bkeys.shape[0] - 1)
-    vid, hit = kref.hash_probe_blocks(bkeys, off_r, probe_keys, part, chunk)
-    return vid, hit.bool()
-
-
-# ---------------------------------------------------------------------------
 # The join
 # ---------------------------------------------------------------------------
 def phj_join(
@@ -148,7 +131,6 @@ def phj_join(
     build_block: int = BUILD_BLOCK,
     partition_bits: int | None = None,
     hash_keys: bool = True,
-    probe_chunk: int = 8192,
     probe_impl: str | None = None,  # "torch" | "cuda" | None (by device)
     gather_impl: str | None = None,  # "torch" | "cuda" | None (by device)
     phases: dict | None = None,
@@ -185,13 +167,12 @@ def phj_join(
 
     with phase(phases, "probe", dev):
         kr = prim.apply_permutation(perm_r, R[key])
-        ks, dig_s_part = prim.apply_permutation(perm_s, S[key], dig_s)
+        ks = prim.apply_permutation(perm_s, S[key])
         bkeys, _, _ = build_blocks(kr, off_r[:P], sz_r[:P], build_block)
-        if resolve_impl(probe_impl, ks) == "cuda":
-            vid_r, matched = kops.hash_probe(bkeys, off_r[:P], ks, off_s[:P], sz_s[:P],
-                                             "cuda")
-        else:
-            vid_r, matched = probe_pk_fk(bkeys, off_r, ks, dig_s_part, probe_chunk)
+        # vid_r is -1 where nothing matched (the reference's plain arm gives
+        # off_r[part] there); `compact` drops those rows either way
+        vid_r, matched = kops.hash_probe(bkeys, off_r[:P], ks, off_s[:P], sz_s[:P],
+                                         probe_impl)
 
     with phase(phases, "compact", dev):
         vid_s = torch.arange(ks.shape[0], dtype=torch.int32, device=dev)
@@ -214,14 +195,12 @@ def phj_join(
         else:
             # OM: gather from the partitioned relations. Probe-side IDs are
             # perfectly clustered, build-side IDs within partitions (§4.3).
-            if resolve_impl(gather_impl, ks) == "cuda":
-                g = lambda src, idx: kops.clustered_gather(src, idx, "cuda")
-            else:
-                g = lambda src, idx: prim.gather(src, idx, fill=0)
             for n in r_pay:
-                cols[n] = g(prim.apply_permutation(perm_r, R[n]), ID_R)
+                cols[n] = kops.clustered_gather(prim.apply_permutation(perm_r, R[n]), ID_R,
+                                                gather_impl)
             for n in s_pay:
-                cols[n] = g(prim.apply_permutation(perm_s, S[n]), ID_S)
+                cols[n] = kops.clustered_gather(prim.apply_permutation(perm_s, S[n]), ID_S,
+                                                gather_impl)
     return Table(cols), count
 
 

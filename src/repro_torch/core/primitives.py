@@ -28,7 +28,6 @@ def apply_permutation(perm: torch.Tensor, *cols: torch.Tensor):
 
 
 def plan_partition_permutation(digits: torch.Tensor, num_partitions: int, *,
-                               max_pass_bits: int | None = None,
                                carry: Sequence[torch.Tensor] = (),
                                impl: str | None = None):
     """Plan a stable radix partition once, payloads later.
@@ -44,7 +43,7 @@ def plan_partition_permutation(digits: torch.Tensor, num_partitions: int, *,
     on the CPU. Carried columns come back already partitioned."""
     impl = kops.partition_plan_impl() if impl is None else impl
     perm, carried, offsets, sizes = kops.partition_plan(
-        digits, num_partitions, carry=carry, max_pass_bits=max_pass_bits, impl=impl)
+        digits, num_partitions, carry=carry, impl=impl)
     if carry:
         return perm, carried, offsets, sizes
     return perm, offsets, sizes

@@ -46,38 +46,23 @@ def reset_launch_counts() -> None:
 # partition planning
 # ---------------------------------------------------------------------------
 def partition_plan(digits: torch.Tensor, num_partitions: int, *, carry=(),
-                   max_pass_bits: int | None = None, impl: str | None = None):
+                   impl: str | None = None):
     """Stable-partition plan: (perm, carried, offsets, sizes), layout tensors
     int32.
 
     impl='cuda': the sort-free rank pipeline (per pass: histogram kernel ->
     tile/digit exclusive prefix -> rank kernel, LSD-composed past 8 bits).
-    impl='torch': a stable sort of the digits; with `max_pass_bits` it runs
-    the paper's multi-pass composition with sorts standing in for the rank
-    passes. Both arms return the same tensors: the stable partition
-    permutation is unique."""
+    impl='torch': one stable sort of the digits. Both arms return the same
+    tensors: the stable partition permutation is unique."""
     impl = resolve_impl(impl, digits)
     if impl == "cuda":
-        return _partition_plan_radix(digits, num_partitions, carry=carry,
-                                     max_pass_bits=max_pass_bits)
-    return _partition_plan_torch(digits, num_partitions, carry, max_pass_bits)
+        return _partition_plan_radix(digits, num_partitions, carry=carry)
+    return _partition_plan_torch(digits, num_partitions, carry)
 
 
-def _partition_plan_torch(digits, num_partitions, carry, max_pass_bits):
-    n = digits.shape[0]
+def _partition_plan_torch(digits, num_partitions, carry):
     digits = digits.to(torch.int32)
-    if max_pass_bits is None:
-        perm = torch.sort(digits, stable=True).indices.to(torch.int32)
-    else:
-        total_bits = max(1, int(num_partitions - 1).bit_length())
-        perm = torch.arange(n, dtype=torch.int32, device=digits.device)
-        cur = digits
-        bit = 0
-        while bit < total_bits:
-            bits = min(max_pass_bits, total_bits - bit)
-            order = torch.sort((cur >> bit) & ((1 << bits) - 1), stable=True).indices
-            cur, perm = cur[order], perm[order]
-            bit += bits
+    perm = torch.sort(digits, stable=True).indices.to(torch.int32)
     carried = tuple(c[perm] for c in carry)
     sizes = torch.bincount(digits, minlength=num_partitions)[:num_partitions].to(torch.int32)
     offsets = torch.cumsum(sizes, 0, dtype=torch.int32) - sizes
@@ -100,19 +85,15 @@ def hash_probe(bkeys: torch.Tensor, off_r: torch.Tensor, probe_keys_part: torch.
                probe_off: torch.Tensor, probe_sz: torch.Tensor, impl: str | None = None):
     """Co-partition PK-FK probe over a partitioned probe side. Returns
     (vid_r, matched) aligned with probe_keys_part order; vid_r is -1 where
-    nothing matched."""
+    nothing matched. impl='torch' is the chunked row-by-row compare
+    (`ref.probe_pk_fk`); impl='cuda' lays the rows out in sub-blocks, runs
+    the kernel and scatters its results back."""
     impl = resolve_impl(impl, probe_keys_part)
+    if impl == "torch":
+        vid, hit = ref.probe_pk_fk(bkeys, off_r, probe_keys_part, probe_off)
+        return vid, hit.bool()
     P, cap_r = bkeys.shape
     n = probe_keys_part.shape[0]
-    if impl == "torch":
-        # per-row partition ids from the layout; rows past the last real
-        # partition (a sentinel partition's overhang) map to P - 1, and their
-        # keys are KEY_SENTINEL, so they never match
-        row = torch.arange(n, dtype=torch.int32, device=probe_keys_part.device)
-        part = (torch.searchsorted(probe_off, row, right=True, out_int32=True) - 1
-                ).clamp(0, P - 1)
-        vid, hit = ref.hash_probe_blocks(bkeys, off_r, probe_keys_part, part)
-        return vid, hit.bool()
     cap_s = cap_r
     max_blocks = ceil_div(n, cap_s) + P
     pk, part, src_idx = layout_probe_blocks(probe_keys_part, probe_off, probe_sz, cap_s,

@@ -140,8 +140,7 @@ def _compose_lsd(extract_digit, n: int, total_bits: int, pass_bits: int,
     return perm
 
 
-def partition_plan(digits: torch.Tensor, num_partitions: int, *, carry=(),
-                   max_pass_bits: int | None = None):
+def partition_plan(digits: torch.Tensor, num_partitions: int, *, carry=()):
     """Sort-free stable partition plan: histogram -> prefix -> rank passes,
     LSD-composed for any fan-out. Returns (perm, carried, offsets, sizes),
     layout tensors int32:
@@ -157,11 +156,10 @@ def partition_plan(digits: torch.Tensor, num_partitions: int, *, carry=(),
     instead of paying an extra whole pass for one bin."""
     n = digits.shape[0]
     digits = digits.to(torch.int32)
-    pb = PASS_BITS if max_pass_bits is None else max(1, min(PASS_BITS, max_pass_bits))
     B = num_partitions
     full_bits = max(1, (B - 1).bit_length())
     tail_bits = max((B - 2).bit_length(), 0) if B >= 2 else 0
-    use_tail = B >= 2 and ceil_div(tail_bits, pb) < ceil_div(full_bits, pb)
+    use_tail = B >= 2 and ceil_div(tail_bits, PASS_BITS) < ceil_div(full_bits, PASS_BITS)
     tail_mask = (digits == B - 1) if use_tail else None
     total_bits = tail_bits if use_tail else full_bits
 
@@ -169,7 +167,7 @@ def partition_plan(digits: torch.Tensor, num_partitions: int, *, carry=(),
         cur = digits if bit == 0 else digits[perm]
         return (cur >> bit) & ((1 << bits) - 1)
 
-    perm = _compose_lsd(extract, n, total_bits, pb, tail_mask, digits.device)
+    perm = _compose_lsd(extract, n, total_bits, PASS_BITS, tail_mask, digits.device)
     dsort = digits[perm]  # sorted by construction
     offsets = torch.searchsorted(
         dsort, torch.arange(B, dtype=torch.int32, device=digits.device), out_int32=True)

@@ -58,6 +58,19 @@ def hash_probe_blocks(bkeys: torch.Tensor, off_r: torch.Tensor, probe_keys: torc
     return torch.cat(vids), torch.cat(hits)
 
 
+def probe_pk_fk(bkeys: torch.Tensor, off_r: torch.Tensor, probe_keys_part: torch.Tensor,
+                probe_off: torch.Tensor, chunk: int = 1 << 16):
+    """The pk_fk probe on a partitioned probe side: each row's partition
+    comes from the layout (probe_off), then `hash_probe_blocks`. Rows past
+    the last real partition (the sentinel partition's overhang) map to P - 1;
+    their keys are KEY_SENTINEL, so they never match."""
+    row = torch.arange(probe_keys_part.shape[0], dtype=torch.int32,
+                       device=probe_keys_part.device)
+    part = (torch.searchsorted(probe_off, row, right=True, out_int32=True) - 1
+            ).clamp(0, bkeys.shape[0] - 1)
+    return hash_probe_blocks(bkeys, off_r, probe_keys_part, part, chunk)
+
+
 def clustered_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[i] = src[clip(idx[i], 0, n_src - 1)] where idx[i] >= 0, else 0."""
     safe = idx.clamp(0, src.shape[0] - 1)

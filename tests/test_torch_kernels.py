@@ -104,24 +104,24 @@ def test_block_histograms_and_ranks_match_pallas(n, bins):
 
 
 @pytest.mark.parametrize("num_partitions", [5, 256, 257, 300, 1025, 65537])
-@pytest.mark.parametrize("max_pass_bits", [None, 3])
-def test_partition_plan_matches_both_jax_arms(num_partitions, max_pass_bits):
-    """The port's stable-sort arm and its LSD rank-pass composition (run here
-    with the kernels' plain versions) against the JAX xla and pallas arms,
-    past 256 partitions and through the 2^k + 1 tail layout."""
+@pytest.mark.parametrize("jax_pass_bits", [None, 3])
+def test_partition_plan_matches_both_jax_arms(num_partitions, jax_pass_bits):
+    """The port's stable-sort arm and its 8-bit LSD rank-pass composition
+    (run here with the kernels' plain versions) against the JAX xla and
+    pallas arms, past 256 partitions and through the 2^k + 1 tail layout.
+    The JAX arms run with their default passes and with 3-bit passes: every
+    composition gives the one stable partition."""
     rng = np.random.default_rng(num_partitions)
     n = 20_000
     d = rng.integers(0, num_partitions, n).astype(np.int32)
     d[rng.random(n) < 0.2] = num_partitions - 1  # a heavy top (sentinel) partition
     carry = rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32)
     ref_arms = [jops.partition_plan(jnp.asarray(d), num_partitions, carry=(jnp.asarray(carry),),
-                                    max_pass_bits=max_pass_bits, impl=impl)
+                                    max_pass_bits=jax_pass_bits, impl=impl)
                 for impl in ("xla", "pallas")]
     port_arms = [
-        tops.partition_plan(_t(d), num_partitions, carry=(_t(carry),),
-                            max_pass_bits=max_pass_bits, impl="torch"),
-        trp.partition_plan(_t(d), num_partitions, carry=(_t(carry),),
-                           max_pass_bits=max_pass_bits),
+        tops.partition_plan(_t(d), num_partitions, carry=(_t(carry),), impl="torch"),
+        trp.partition_plan(_t(d), num_partitions, carry=(_t(carry),)),
     ]
     for jperm, (jc,), joff, jsz in ref_arms:
         for perm, (c,), off, sz in port_arms:
