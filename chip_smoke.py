@@ -19,11 +19,23 @@
    reference in int64 gives the same per-key row counts, sums of s1 and
    maxima of r1, for the join and the group-by; (c) every kernel of the path
    was launched.
-5. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the J2 query gives it (they must be exactly equal), and times the
-   kernel, the plain version and the one PyTorch library call that computes
-   the same function where there is one (median of CUDA-event timings),
-   beside the least time the card could take.
+5. Drives two more paths on the same data, each with the launch counters
+   set to 0 just before it and read just after:
+   (d) the fused group-join, Q18's `group by l_orderkey`:
+       phj_groupjoin(R, S, group_key="k", aggs={s1: sum, r1: sum, r2: count})
+       with 15M groups (cold and warm wall times, peak memory, launches, a
+       profiled warm run),
+       checked against the numpy reference, against the torch arm with the
+       sort strategy on the card, and against a second run bit for bit;
+   (e) the sort group-bys over the join output: strategy="sort" with the
+       query's aggregates (equal to the numpy reference), and
+       strategy="sort_pallas" with {s1: sum, r2: count}.
+6. Holds each kernel against its plain PyTorch version on the card, at the
+   shapes these paths give it (keys, layouts and counts exactly equal, float
+   sums to a stated tolerance), and times the kernel, the plain version and
+   the one PyTorch library call that computes the same function where there
+   is one (median of CUDA-event timings), beside the least time the card
+   could take.
 
 Prints one JSON line {"kernels": [...]} before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, before printing either,
@@ -52,6 +64,25 @@ AGGS = {"s1": "sum", "r1": "max", "r2": "count"}
 # one gather per payload column
 EXPECTED_LAUNCHES = {"block_histograms": 8, "partition_ranks": 8, "hash_probe": 1,
                      "clustered_gather": 4}
+# the group-join: the same two plans as the join, one fused probe pass, no
+# gather and no group-by partition
+GJ_AGGS = {"s1": "sum", "r1": "sum", "r2": "count"}
+GJ_LAUNCHES = {"block_histograms": 6, "partition_ranks": 6, "hash_probe": 0,
+               "clustered_gather": 0, "probe_agg": 1, "segsum_partials": 0}
+# sort_pallas with a sum and a count: the hoisted count pass and one pass
+# for s1
+SP_AGGS = {"s1": "sum", "r2": "count"}
+SP_LAUNCHES = {"block_histograms": 0, "partition_ranks": 0, "hash_probe": 0,
+               "clustered_gather": 0, "probe_agg": 0, "segsum_partials": 2}
+# float32 sums of int64 payloads below 2^31 against exact int64 sums: each
+# value rounds by at most 2^-24 relative when it is converted, each add as
+# much again, so |got - exact| <= 2 * rows * 2^-24 * |exact| for the
+# non-negative payloads of J2
+F32_ULP = 2.0 ** -24
+# a kernel against its plain version, both adding a slot's rows in row
+# order in float32: equal unless a compiler reorders an add; allowed one
+# ulp of the sum
+KERNEL_SUM_RTOL = 2.0 ** -23
 KERNEL_SOURCES = {
     "block_histograms": ("src/repro_torch/csrc/block_histograms.cu",
                          "src/repro/kernels/radix_partition.py:49"),
@@ -60,6 +91,9 @@ KERNEL_SOURCES = {
     "hash_probe": ("src/repro_torch/csrc/hash_probe.cu", "src/repro/kernels/hash_probe.py:43"),
     "clustered_gather": ("src/repro_torch/csrc/clustered_gather.cu",
                          "src/repro/kernels/gather.py:40"),
+    "probe_agg": ("src/repro_torch/csrc/probe_agg.cu", "src/repro/kernels/hash_probe.py:132"),
+    "segsum_partials": ("src/repro_torch/csrc/segsum_partials.cu",
+                        "src/repro/kernels/segsum.py:43"),
 }
 
 
@@ -91,6 +125,27 @@ def cuda_ms(torch, fn, reps: int = 7, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def check_f32_sums(got, exact, rows, what: str) -> float:
+    """float32 sums against exact int64 ones within F32_ULP (see there);
+    returns the largest relative error."""
+    got = got.astype(np.float64)
+    exact = exact.astype(np.float64)
+    err = np.abs(got - exact)
+    check((err <= 2 * rows * F32_ULP * np.abs(exact)).all(),
+          f"{what}: float32 sums off by more than 2 * rows * 2^-24 relative "
+          f"(max abs err {err.max()})")
+    return float((err / np.maximum(np.abs(exact), 1)).max()) if err.size else 0.0
+
+
+def slot_compares(torch, ref, gke):
+    """Compares of probe_agg's slot scan for masked group keys (B, cap):
+    a row whose key first appears at row i of its sub-block scans i rows,
+    any other row scans up to its key's first row."""
+    rep = ref.first_equal_rows(gke)
+    pos = torch.arange(gke.shape[1], device=gke.device)
+    return int(torch.where(gke != -1, torch.where(rep == pos, pos, rep + 1), 0).sum())
 
 
 def timed(torch, fn):
@@ -131,9 +186,10 @@ def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from the repository")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import (group_aggregate, join, phj_overflowed, table_from_numpy,
-                                  table_to_numpy)
+    from repro_torch.core import (group_aggregate, join, phj_groupjoin, phj_overflowed,
+                                  table_from_numpy, table_to_numpy)
     from repro_torch.core import groupby as gb
+    from repro_torch.core import groupjoin as gj
     from repro_torch.core import hash_join as hj
     from repro_torch.core import primitives as prim
     from repro_torch.data.relgen import generate_tpc
@@ -141,6 +197,7 @@ def main() -> None:
     from repro_torch.kernels import gather as kgather
     from repro_torch.kernels import hash_probe as kprobe
     from repro_torch.kernels import radix_partition as krp
+    from repro_torch.kernels import segsum as kseg
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -201,24 +258,26 @@ def main() -> None:
     check(int(cnt) == n_s, f"join rows {int(cnt)} != {n_s} (match ratio 1.0)")
 
     # -- where the time of a warm query goes --------------------------------
+    def profile_run(fn):
+        """One profiled warm run: device time by kernel and the idle share."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = timed(torch, fn)
+        averages = prof.key_averages()
+        kernel_us = {e.key[:90]: e.self_device_time_total for e in averages
+                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+        host_us = {e.key[:60]: e.self_cpu_time_total for e in averages
+                   if e.device_type == DeviceType.CPU}
+        busy_s = sum(kernel_us.values()) / 1e6
+
+        def top(us):
+            return {k: v / 1e3 for k, v in sorted(us.items(), key=lambda kv: -kv[1])[:15]}
+
+        return {"profiled_wall_s": wall, "device_busy_s": busy_s if busy_s else "not measured",
+                "device_idle_share": 1 - busy_s / wall if busy_s else "not measured",
+                "top_kernels_ms": top(kernel_us), "top_host_ops_self_ms": top(host_us)}
+
     walls = sorted(timed(torch, query)[1] for _ in range(3))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, prof_wall = timed(torch, query)
-    averages = prof.key_averages()
-    kernel_us = {e.key[:90]: e.self_device_time_total for e in averages
-                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
-    host_us = {e.key[:60]: e.self_cpu_time_total for e in averages
-               if e.device_type == DeviceType.CPU}
-    busy_s = sum(kernel_us.values()) / 1e6
-
-    def top(us):
-        return {k: v / 1e3 for k, v in sorted(us.items(), key=lambda kv: -kv[1])[:15]}
-
-    log(json.dumps({"j2_profile": {
-        "query_s_median_of_3": walls[1], "profiled_wall_s": prof_wall,
-        "device_busy_s": busy_s if busy_s else "not measured",
-        "device_idle_share": 1 - busy_s / prof_wall if busy_s else "not measured",
-        "top_kernels_ms": top(kernel_us), "top_host_ops_self_ms": top(host_us)}}))
+    log(json.dumps({"j2_profile": {"query_s_median_of_3": walls[1], **profile_run(query)}}))
 
     # -- 4a. every arm forced to plain PyTorch, on the card -----------------
     os.environ[ops.PARTITION_PLAN_ENV] = "torch"
@@ -271,28 +330,121 @@ def main() -> None:
     log(f"(b) numpy int64 reference: join and group-by agree per key "
         f"({time.perf_counter() - t0:.3f} s)")
     log(f"(c) launches on the main path: {json.dumps(launches)}")
-    tk = T["k"]
-    del T, G
 
-    # -- 5. each kernel against its plain version, at J2's shapes ------------
+    def run_path(name, fn, expected):
+        """One more path: cold run, then counters and peak reset, a warm run
+        read at once, two more warm runs; returns (out, times, launches)."""
+        _, cold = timed(torch, fn)
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out, warm = timed(torch, fn)
+        got = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        walls = sorted([warm] + [timed(torch, fn)[1] for _ in range(2)])
+        info = {"cold_s": cold, "warm_s": warm, "warm_s_median_of_3": walls[1],
+                "peak_device_bytes": peak, "peak_above_live_bytes": peak - live,
+                "launches": got}
+        log(json.dumps({name: info}))
+        for k, want in expected.items():
+            check(got[k] == want, f"{name}: kernel {k} launched {got[k]} times, expected {want}")
+        return out, info
+
+    # -- 5d. the fused group-join: Q18's group by l_orderkey ----------------
+    def groupjoin(**kw):
+        return phj_groupjoin(R, S, key="k", group_key="k", aggs=GJ_AGGS, num_groups=N_GROUPS,
+                             **kw)
+
+    (Gj, gjc), gj_info = run_path("j2_groupjoin", groupjoin, GJ_LAUNCHES)
+    log(json.dumps({"j2_groupjoin_profile": profile_run(groupjoin)}))
+    log(f"fused group-join warm {gj_info['warm_s_median_of_3']:.6f} s against join -> "
+        f"group-by warm {walls[1]:.6f} s (medians of 3)")
+    Gj2, gjc2 = groupjoin()
+    check(int(gjc2) == int(gjc) and all(torch.equal(Gj[c], Gj2[c]) for c in Gj.column_names),
+          "group-join: a second run is not bit-identical")
+    del Gj2
+    m = int(gjc)
+    check(m == int(present.sum()), f"group-join: {m} groups != {int(present.sum())}")
+    Gjh = table_to_numpy(Gj.head(m))
+    keys_ref = np.flatnonzero(present)
+    check(np.array_equal(Gjh["k"], keys_ref), "group-join: keys differ from numpy")
+    rows_k = rows_ref[keys_ref]
+    check(np.array_equal(Gjh["r2_count"], rows_k), "group-join: counts differ from numpy")
+    check(Gjh["s1_sum"].dtype == np.float32 and Gjh["r2_count"].dtype == np.int32,
+          "group-join: the fused arm gives float32 sums and int32 counts")
+    gj_err = {"s1_sum": check_f32_sums(Gjh["s1_sum"], s1_ref[keys_ref], rows_k, "group-join s1"),
+              "r1_sum": check_f32_sums(Gjh["r1_sum"], r1_of_key[keys_ref] * rows_k, rows_k,
+                                       "group-join r1")}
+    (Gt, gtc), gt_s = timed(torch, lambda: groupjoin(probe_impl="torch", agg_strategy="sort"))
+    check(int(gtc) == m and torch.equal(Gt["k"], Gj["k"])
+          and torch.equal(Gt["r2_count"], Gj["r2_count"]),
+          "group-join: keys or counts differ from the torch arm with the sort strategy")
+    for c in ("s1_sum", "r1_sum"):
+        check(Gt[c].dtype == torch.int64, f"torch arm: {c} lost the int64 payload type")
+        check_f32_sums(Gjh[c], Gt[c][:m].cpu().numpy(), rows_k, f"group-join {c} vs torch arm")
+    log(f"(d) fused group-join: {m} groups equal to numpy (keys, counts; float32 sums within "
+        f"2 * rows * 2^-24 relative, max relative error {json.dumps(gj_err)}), to the torch "
+        f"arm with the sort strategy ({gt_s:.3f} s), and bit-identical on a second run")
+    del Gj, Gt, Gjh
+
+    # -- 5e. the sort group-bys over the join output ------------------------
+    (Gs, gsc), _ = run_path("j2_groupby_sort", lambda: group_aggregate(
+        T, key="k", aggs=AGGS, num_groups=N_GROUPS, strategy="sort"),
+        dict.fromkeys(ops.launch_counts(), 0))
+    Gsh = table_to_numpy(Gs.head(int(gsc)))
+    check(int(gsc) == m and np.array_equal(Gsh["k"], keys_ref), "sort: keys differ from numpy")
+    check(np.array_equal(Gsh["r2_count"], rows_k), "sort: counts differ from numpy")
+    check(np.array_equal(Gsh["s1_sum"], s1_ref[keys_ref]), "sort: sums of s1 differ")
+    check(np.array_equal(Gsh["r1_max"], r1_ref[keys_ref]), "sort: max of r1 differs")
+    check(Gsh["s1_sum"].dtype == np.int64, "sort: the sum lost the int64 payload type")
+    del Gs, Gsh
+    (Gp, gpc), sp_info = run_path("j2_groupby_sort_pallas", lambda: group_aggregate(
+        T, key="k", aggs=SP_AGGS, num_groups=N_GROUPS, strategy="sort_pallas"), SP_LAUNCHES)
+    Gph = table_to_numpy(Gp.head(int(gpc)))
+    check(int(gpc) == m and np.array_equal(Gph["k"], keys_ref),
+          "sort_pallas: keys differ from numpy")
+    check(np.array_equal(Gph["r2_count"], rows_k), "sort_pallas: counts differ from numpy")
+    sp_err = check_f32_sums(Gph["s1_sum"], s1_ref[keys_ref], rows_k, "sort_pallas s1")
+    log(f"(e) sort group-by equal to numpy (int64); sort_pallas keys and counts equal, "
+        f"float32 sums within 2 * rows * 2^-24 relative (max {sp_err})")
+    del Gp, Gph
+    path_launches = dict(launches, probe_agg=gj_info["launches"]["probe_agg"],
+                         segsum_partials=sp_info["launches"]["segsum_partials"])
+    tk = T["k"]
+    ts1 = T["s1"]
+    del T, G
+    # -- 6. each kernel against its plain version, at J2's shapes ------------
     results = []
 
-    def record(name, kernel_out, plain_out, kernel_fn, plain_fn, library_fn, nbytes, nops=0):
+    def record(name, kernel_out, plain_out, kernel_fn, plain_fn, library_fn, nbytes, nops=0,
+               plain_reps=5, library=None):
+        """Integer outputs must equal the plain version's; float outputs may
+        differ by KERNEL_SUM_RTOL of their magnitude."""
         for k, p in zip(kernel_out, plain_out):
             check(k.shape == p.shape and k.dtype == p.dtype, f"{name}: shape/dtype differ")
-            check(torch.equal(k, p), f"{name}: kernel differs from its plain version")
+            if k.dtype.is_floating_point:
+                check(((k.double() - p.double()).abs()
+                       <= KERNEL_SUM_RTOL * p.double().abs()).all(),
+                      f"{name}: kernel sums differ from its plain version by more than "
+                      f"{KERNEL_SUM_RTOL} relative")
+            else:
+                check(torch.equal(k, p), f"{name}: kernel differs from its plain version")
         err = max(float((k.double() - p.double()).abs().max()) if k.numel() else 0.0
                   for k, p in zip(kernel_out, plain_out))
         bound_b, bound_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
         row = {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
-               "replaces": KERNEL_SOURCES[name][1], "launches": launches[name],
+               "replaces": KERNEL_SOURCES[name][1], "launches": path_launches[name],
                "max_abs_err": err, "ms": cuda_ms(torch, kernel_fn),
-               "plain_ms": cuda_ms(torch, plain_fn, reps=5),
+               "plain_ms": cuda_ms(torch, plain_fn, reps=plain_reps, warmup=1),
                "bound_ms": max(bound_b, bound_o),
                "bound_by": "bytes" if bound_b >= bound_o else "operations",
                "library_ms": cuda_ms(torch, library_fn) if library_fn else None}
+        if library:
+            row["library"] = library
         results.append(row)
-        log(f"kernel {name}: exact; {json.dumps(row)} bytes={nbytes} ops={nops}")
+        log(f"kernel {name}: {'exact' if err == 0 else f'max abs err {err}'}; "
+            f"{json.dumps(row)} bytes={nbytes} ops={nops}")
 
     # the first plan pass of the probe side: 60M digits, 256 bins
     dig_s = hj._digits(S["k"], p_bits, True)
@@ -322,7 +474,7 @@ def main() -> None:
     check(torch.equal(krp.rank_with_base(gd, krp.tile_base(gh)[0], 257),
                       ref.partition_ranks(gd, 257)), "257-bin ranks differ")
     log("kernels block_histograms and partition_ranks at the group-by's 257 bins: exact")
-    del tk, gdig, gd, gh
+    del gdig, gd, gh
 
     # the probe and the gathers, on the join's own layout
     P = 1 << p_bits
@@ -332,7 +484,8 @@ def main() -> None:
     kr, ks = R["k"][perm_r], S["k"][perm_s]
     bkeys, _, _ = hj.build_blocks(kr, off_r[:P], sz_r[:P], hj.BUILD_BLOCK)
     cap = hj.BUILD_BLOCK
-    pk, part, _ = kprobe.layout_probe_blocks(ks, off_s[:P], sz_s[:P], cap, -(-n_s // cap) + P)
+    pk, part, src_idx = kprobe.layout_probe_blocks(ks, off_s[:P], sz_s[:P], cap,
+                                                   -(-n_s // cap) + P)
     offp = off_r[:P].contiguous()
     vid, hit = kprobe.hash_probe(bkeys, offp, pk, part)
     B = pk.shape[0]
@@ -356,7 +509,36 @@ def main() -> None:
            lambda: kprobe.hash_probe(bkeys, offp, pk, part), probe_plain, None,
            4 * (3 * n_s + n_r + P), nops)
     check(int(hit.sum()) == n_s, "the probe missed rows of a match-ratio-1 join")
-    del pk, part, vid, hit, slot
+
+    # the group-join's probe_agg on the same layout: group key k, s1 from
+    # the probe side, r1 from the build side (as phj_groupjoin lays them out)
+    pad = src_idx >= 0
+    safe = src_idx.clamp(min=0)
+    gkb = torch.where(pad, ks[safe], -1)
+    pvb = torch.where(pad, S["s1"][perm_s].to(torch.float32)[safe], 0.0)[:, None, :].contiguous()
+    bvb = gj._value_blocks(R["r1"][perm_r], off_r[:P], sz_r[:P], cap)[:, None, :].contiguous()
+    del safe, src_idx
+    sides = (("probe", 0), ("build", 0))
+    agg_args = (bkeys, bvb, pk, gkb, pvb, part, sides)
+    agg_out = kprobe.probe_agg(*agg_args)
+    agg_plain = ref.probe_agg_blocks(*agg_args)
+    live = int((agg_out[2] > 0).sum())
+    # bytes the data needs: each probe row's join key, group key and s1 read
+    # once, each build row's key and r1 once, and one (key, two sums, count)
+    # partial written per live slot; the padded layout moves every slot
+    agg_bytes = n_s * (4 + 4 + 4) + n_r * (4 + 4) + live * (4 + 2 * 4 + 4)
+    agg_padded = (bkeys.numel() * 4 + bvb.numel() * 4 + pk.numel() * (4 + 4 + 4) + B * 4
+                  + pk.numel() * (4 + 2 * 4 + 4))
+    gke = torch.where(hit.bool(), gkb, -1)
+    slot_ops = slot_compares(torch, ref, gke)
+    agg_ops = nops + slot_ops + n_s * (len(sides) + 1)
+    del gke
+    log(f"probe_agg: {live} live partials; padded layout bytes={agg_padded} bound "
+        f"{agg_padded / HBM_BYTES_PER_S * 1e3:.6f} ms; compares: probe {nops}, slot scan "
+        f"{slot_ops}; adds {n_s * (len(sides) + 1)}")
+    record("probe_agg", list(agg_out), list(agg_plain), lambda: kprobe.probe_agg(*agg_args),
+           lambda: ref.probe_agg_blocks(*agg_args), None, agg_bytes, agg_ops, plain_reps=3)
+    del pk, part, vid, hit, slot, agg_out, agg_plain, agg_args, gkb, pvb, bvb
 
     vid_r, matched = ops.hash_probe(bkeys, off_r[:P], ks, off_s[:P], sz_s[:P], "cuda")
     (_, vr), c = prim.compact(matched, [ks, vid_r], n_s, fill=-1)
@@ -367,6 +549,32 @@ def main() -> None:
            [ref.clustered_gather(src, id_r)], lambda: kgather.clustered_gather(src, id_r),
            lambda: ref.clustered_gather(src, id_r), lambda: torch.take(src, idx_long),
            src.numel() * 8 + id_r.numel() * 4 + id_r.numel() * 8)
+
+    del src, idx_long, id_r, vr, vid_r, matched
+
+    # the sort_pallas group-by's s1 pass: the join output's keys in sorted
+    # order and s1 as float32
+    sk, perm = prim.plan_sort_permutation(tk)
+    sv = ts1[perm].to(torch.float32)
+    del perm, tk, ts1
+    seg_out = kseg.segsum_partials(sk, sv)
+    seg_plain = ref.segsum_partials(sk, sv, kseg.TILE)
+    # tile-local run lengths, for the one library call that sums the same
+    # runs (sums only: no keys, no counts, no slot layout)
+    lengths = seg_out[2][seg_out[0] != -1].to(torch.int64)
+    check(int(lengths.sum()) == n_s, "segsum_partials: the runs do not cover the rows")
+    # bytes the data needs, by probe_agg's rule: each sorted key and value
+    # read once, one (key, sum, count) partial written per live slot; the
+    # slot layout writes every slot
+    seg_live = lengths.shape[0]
+    seg_padded = n_s * (4 + 4) + seg_out[0].numel() * (4 + 4 + 4)
+    log(f"segsum_partials: {seg_live} live partials in {seg_out[0].numel()} slots; slot "
+        f"layout bytes={seg_padded} bound {seg_padded / HBM_BYTES_PER_S * 1e3:.6f} ms")
+    record("segsum_partials", list(seg_out), list(seg_plain),
+           lambda: kseg.segsum_partials(sk, sv), lambda: ref.segsum_partials(sk, sv, kseg.TILE),
+           lambda: torch.segment_reduce(sv, "sum", lengths=lengths, unsafe=True),
+           n_s * (4 + 4) + seg_live * (4 + 4 + 4),
+           library="torch.segment_reduce over the tile-local run lengths (sums only)")
 
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,11 @@
 """repro_torch.core — the paper's partitioned hash join with GFTR
-materialization and the partition group-by, on PyTorch tensors."""
+materialization, the fused group-join, and the sort-based and partition
+group-bys, on PyTorch tensors."""
 
 from . import primitives
-from .groupby import choose_groupby_partition_bits, group_aggregate, groupby_partition
+from .groupby import (choose_groupby_partition_bits, group_aggregate, groupby_partition,
+                      groupby_sort, groupby_sort_pallas)
+from .groupjoin import groupjoin_overflowed, groupjoin_required_groups, phj_groupjoin
 from .hash_join import choose_partition_bits, hash32, phj_join, phj_overflowed
 from .join import ALGORITHMS, PATTERNS, by_name, join
 from .table import KEY_SENTINEL, Table, concat_tables, table_from_numpy, table_to_numpy
@@ -12,5 +15,7 @@ __all__ = [
     "join", "by_name", "ALGORITHMS", "PATTERNS",
     "phj_join", "phj_overflowed", "hash32", "choose_partition_bits",
     "group_aggregate", "groupby_partition", "choose_groupby_partition_bits",
+    "groupby_sort", "groupby_sort_pallas",
+    "phj_groupjoin", "groupjoin_required_groups", "groupjoin_overflowed",
     "primitives",
 ]

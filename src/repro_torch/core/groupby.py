@@ -1,38 +1,34 @@
-"""Grouped aggregation: the partition-based algorithm (high group
-cardinality; the paper's third group-by algorithm).
+"""Grouped aggregation: the sort-based algorithms and the partition-based
+algorithm (high group cardinality; the paper's third group-by algorithm).
 
-Rows are radix-partitioned on hashed key bits until each partition fits a
-`row_block`-row block, then every partition is aggregated on its own: no
-global sort and no cross-partition combine, because a group lives in exactly
-one partition. The partition is planned once and every column is gathered
-once, straight into the blocked (P, row_block) layout.
+`groupby_sort` sorts the rows by key once (one planned permutation, one
+gather per payload column) and reduces each run of equal keys.
+`groupby_sort_pallas` keeps that sort and reduces each 256-row tile of it
+to per-run partials in the segsum_partials kernel, then combines the
+partials (`ops.groupby_sorted_sum`); the name is the reference's, so its
+plans carry over.
+
+`groupby_partition` radix-partitions rows on hashed key bits until each
+partition fits a `row_block`-row block, then aggregates every partition on
+its own: no global sort and no cross-partition combine, because a group
+lives in exactly one partition. The partition is planned once and every
+column is gathered once, straight into the blocked (P, row_block) layout.
 
 Outputs follow the static-capacity contract: (Table with num_groups rows,
-valid_count), padded with KEY_SENTINEL. The sort, partition_hash, scatter and
-sort_pallas strategies of the reference are still to port.
+valid_count), padded with KEY_SENTINEL. The partition_hash and scatter
+strategies of the reference are still to port.
 """
 from __future__ import annotations
 
 import torch
 
+from ..kernels import ops as kops
 from . import primitives as prim
 from .hash_join import _nonempty, hash32
 from .table import KEY_SENTINEL, Table
 
 AGG_OPS = ("sum", "count", "min", "max", "mean")
 STRATEGIES = ("sort", "partition", "partition_hash", "scatter", "sort_pallas")
-
-
-def _seg_reduce(op, vals: torch.Tensor, gid: torch.Tensor, num_segments: int):
-    """Segment min/max, with the reference's identity (the dtype's extreme,
-    +-inf for floats) in empty segments. Min and max do not depend on the
-    order of the updates, so the scatter is deterministic on the card."""
-    if op not in ("min", "max"):
-        raise ValueError(op)
-    out = torch.full((num_segments,), _identity(op, vals.dtype), dtype=vals.dtype,
-                     device=vals.device)
-    return out.scatter_reduce_(0, gid.to(torch.int64), vals,
-                               reduce="amin" if op == "min" else "amax", include_self=True)
 
 
 def _identity(op, dtype):
@@ -48,6 +44,95 @@ def _finalize(op, acc, counts):
     return acc
 
 
+def _check_aggs(aggs: dict[str, str], allowed=AGG_OPS) -> None:
+    for op in aggs.values():
+        if op not in allowed:
+            raise ValueError(f"unknown aggregate {op!r}; allowed: {allowed}")
+
+
+def _min_max_segments(op, vals, valid, rid, num_groups: int):
+    """Segment min/max over the runs of a key-sorted or blocked column, with
+    the reference's identity (the dtype's extreme, +-inf for floats) in
+    empty runs. Pad rows carry the reduction's identity and go to the run
+    before them (run 0 before the first), which leaves every run's result
+    unchanged; sending them all to one spare segment, as the reference
+    does, serialises tens of millions of atomics on one address on the
+    card. Min and max do not depend on the order of the updates, so the
+    scatter is deterministic."""
+    ident = _identity(op, vals.dtype)
+    seg = torch.where(rid < num_groups, rid.clamp(min=0), num_groups)
+    masked = torch.where(valid, vals, ident)
+    out = torch.full((num_groups + 1,), ident, dtype=vals.dtype, device=vals.device)
+    out.scatter_reduce_(0, seg.to(torch.int64), masked,
+                        reduce="amin" if op == "min" else "amax", include_self=True)
+    return out[:num_groups]
+
+
+# ---------------------------------------------------------------------------
+# Sort-based (transform first, the GFTR analogue)
+# ---------------------------------------------------------------------------
+def groupby_sort(table: Table, *, key: str = "k", aggs: dict[str, str], num_groups: int):
+    """Sort rows by key, find the runs of equal keys, reduce each run.
+    Returns (Table(key + agg columns), valid_count); groups in key order.
+
+    The key sort is planned once and each payload column costs one gather.
+    Sums keep the input's dtype: float sums are taken run by run, integer
+    sums are differences of a prefix sum and wrap as the input type does
+    (`ops.RunSums`, one for every column)."""
+    _check_aggs(aggs)
+    table = _nonempty(table, key)
+    sk, perm = prim.plan_sort_permutation(table[key])
+    valid, rid, starts, n_found = kops.sorted_runs(sk, num_groups)
+    run_sums = kops.RunSums(starts)
+    counts = run_sums(valid.to(torch.int32))
+    cols = {key: kops.run_keys(sk, starts, n_found)}
+    for col, op in aggs.items():
+        if op == "count":
+            cols[f"{col}_{op}"] = counts
+            continue
+        tv = prim.apply_permutation(perm, table[col])  # one gather per column
+        if op in ("sum", "mean"):
+            acc = run_sums(torch.where(valid, tv, torch.zeros((), dtype=tv.dtype,
+                                                              device=tv.device)))
+        else:
+            acc = _min_max_segments(op, tv, valid, rid, num_groups)
+        cols[f"{col}_{op}"] = _finalize(op, acc, counts)
+    return Table(cols), torch.clamp(n_found, max=num_groups)
+
+
+def groupby_sort_pallas(table: Table, *, key: str = "k", aggs: dict[str, str],
+                        num_groups: int):
+    """Sort-based group-by whose per-tile partial sums run in the
+    segsum_partials kernel on the card (its plain version on the CPU).
+    Sum, mean and count; sums and means are float32.
+
+    The key sort is planned once and each payload column costs one gather
+    and one kernel pass. The count pass is key-only and the same for every
+    column, so it runs at most once, and only when a mean or count needs
+    it."""
+    _check_aggs(aggs, ("sum", "mean", "count"))
+    table = _nonempty(table, key)
+    sk, perm = prim.plan_sort_permutation(table[key])
+    out = {}
+    count = gc = None
+    if any(op in ("mean", "count") for op in aggs.values()):
+        out[key], gc, count = kops.groupby_sorted_sum(
+            sk, torch.ones(sk.shape, dtype=torch.float32, device=sk.device), num_groups)
+    for col, op in aggs.items():
+        if op == "count":
+            out[f"{col}_{op}"] = gc.to(torch.int32)
+            continue
+        sv = prim.apply_permutation(perm, table[col])  # one gather per column
+        gk, gs, cnt = kops.groupby_sorted_sum(sk, sv.to(torch.float32), num_groups)
+        if count is None:
+            out[key], count = gk, cnt
+        out[f"{col}_{op}"] = gs if op == "sum" else gs / gc.clamp(min=1.0)
+    return Table(out), count
+
+
+# ---------------------------------------------------------------------------
+# Partition-based
+# ---------------------------------------------------------------------------
 # default padded-block capacity per partition
 PARTITION_ROW_BLOCK = 128
 
@@ -117,9 +202,7 @@ def groupby_partition(
     A partition holding more than `row_block` rows has its overhang dropped;
     the fan-out makes that negligible for the high-cardinality,
     low-multiplicity inputs this strategy is for."""
-    for op in aggs.values():
-        if op not in AGG_OPS:
-            raise ValueError(f"unknown aggregate {op!r}; allowed: {AGG_OPS}")
+    _check_aggs(aggs)
     table = _nonempty(table, key)
     keys = table[key]
     dev = keys.device
@@ -190,15 +273,7 @@ def groupby_partition(
             acc = run_block_total(torch.where(valid2d, vs, torch.zeros((), dtype=vs.dtype,
                                                                        device=dev)))
         else:
-            # Pad slots carry the reduction's identity and go to the run
-            # before them (run 0 before the first), which leaves every run's
-            # result unchanged. Sending them all to one spare segment, as the
-            # reference does, serialises tens of millions of atomics on one
-            # address on the card.
-            vsf = vs.reshape(-1)
-            seg = torch.where(rid < num_groups, rid.clamp(min=0), num_groups)
-            masked = torch.where(valid, vsf, _identity(op, vsf.dtype))
-            acc = _seg_reduce(op, masked, seg, num_groups + 1)[:num_groups]
+            acc = _min_max_segments(op, vs.reshape(-1), valid, rid, num_groups)
         cols[f"{col}_{op}"] = _finalize(op, acc, counts)
     return Table(cols), count
 
@@ -212,11 +287,14 @@ def group_aggregate(
     strategy: str = "sort",
     **kw,
 ):
-    """Unified entry point. strategy in STRATEGIES; only 'partition' is
-    ported so far, the others raise NotImplementedError."""
-    if strategy == "partition":
-        return groupby_partition(table, key=key, aggs=aggs, num_groups=num_groups, **kw)
+    """Unified entry point. strategy in STRATEGIES; 'sort' (the default),
+    'sort_pallas' and 'partition' are ported, the others raise
+    NotImplementedError."""
+    fn = {"sort": groupby_sort, "sort_pallas": groupby_sort_pallas,
+          "partition": groupby_partition}.get(strategy)
+    if fn is not None:
+        return fn(table, key=key, aggs=aggs, num_groups=num_groups, **kw)
     if strategy in STRATEGIES:
         raise NotImplementedError(f"group-by strategy {strategy!r} is not ported yet; "
-                                  "use strategy='partition'")
+                                  "use strategy='sort' or 'partition'")
     raise ValueError(f"unknown group-by strategy {strategy!r}")

@@ -1,10 +1,12 @@
 """GPU primitives of the paper (§2.3) on PyTorch.
 
   RADIX-PARTITION(kin, vin, i, j) -> stable partition on radix bits [i, j)
+  SORT-PAIRS(kin, vin)            -> stable sort by key
   GATHER(in, map, out)            -> out[i] = in[map[i]]
 
-Partitioning is planned once (`plan_partition_permutation`) and every
-payload column is then materialized with one gather (`apply_permutation`):
+Partitioning and sorting are planned once (`plan_partition_permutation`,
+`plan_sort_permutation`) and every payload column is then materialized
+with one gather (`apply_permutation`):
 the one-permutation layer of the reference. Layout tensors are int32 on
 every path; torch's arange, cumsum and bincount default to int64, so they
 are cast here.
@@ -25,6 +27,13 @@ def apply_permutation(perm: torch.Tensor, *cols: torch.Tensor):
     one column, a tuple for several."""
     outs = tuple(c[perm] for c in cols)
     return outs if len(cols) != 1 else outs[0]
+
+
+def plan_sort_permutation(keys: torch.Tensor):
+    """Plan a stable key sort once, payloads later: (sorted_keys, perm int32),
+    where `apply_permutation(perm, col)` gives any payload column in key
+    order at one gather. One stable torch.sort (`ops.sort_plan`)."""
+    return kops.sort_plan(keys)
 
 
 def plan_partition_permutation(digits: torch.Tensor, num_partitions: int, *,

@@ -3,8 +3,10 @@ versions, for the paper's hot spots on the join and group-by path:
 
   radix_partition  per-tile digit histograms and stable partition ranks,
                    composed into the sort-free multi-pass partition planner
-  hash_probe       co-partition probe (build block staged in shared memory)
+  hash_probe       co-partition probe (build block staged in shared memory),
+                   and the group-join's fused probe + tile-local aggregate
   gather           GFTR clustered gather of 4- and 8-byte elements
+  segsum           per-tile partial sums over key-sorted rows (sort group-by)
 
 Sources live in `repro_torch/csrc/`, are compiled by nvcc at first use
 (`_build`), and are loaded with ctypes. A CUDA tensor runs the kernel, a CPU
@@ -12,12 +14,14 @@ tensor the plain version in `ref`.
 """
 from . import ops, ref
 from .gather import clustered_gather
-from .hash_probe import layout_probe_blocks
+from .hash_probe import layout_probe_blocks, probe_agg
 from .radix_partition import block_histograms, partition_plan, partition_ranks
+from .segsum import segsum_partials
 
 __all__ = [
     "ops", "ref",
     "block_histograms", "partition_ranks", "partition_plan",
-    "layout_probe_blocks",
+    "layout_probe_blocks", "probe_agg",
     "clustered_gather",
+    "segsum_partials",
 ]

@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("block_histograms", "partition_ranks", "hash_probe", "clustered_gather")
+SOURCES = ("block_histograms", "partition_ranks", "hash_probe", "clustered_gather", "probe_agg",
+           "segsum_partials")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +34,9 @@ SIGNATURES = {
     "partition_ranks": {"partition_ranks": (_P, _P, _L, _I, _I, _P, _P)},
     "hash_probe": {"hash_probe": (_P, _P, _P, _P, _L, _I, _I, _I, _P, _P, _P)},
     "clustered_gather": {"clustered_gather": (_P, _P, _L, _L, _I, _P, _P)},
+    "probe_agg": {"probe_agg": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
+                                _P, _P, _P, _P)},
+    "segsum_partials": {"segsum_partials": (_P, _P, _L, _I, _I, _P, _P, _P, _P)},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -22,7 +22,8 @@ KEY_SENTINEL = -1
 IMPLS = ("torch", "cuda")
 
 # One launch counter per hand-written kernel.
-KERNELS = ("block_histograms", "partition_ranks", "hash_probe", "clustered_gather")
+KERNELS = ("block_histograms", "partition_ranks", "hash_probe", "clustered_gather",
+           "probe_agg", "segsum_partials")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 

@@ -1,10 +1,12 @@
-"""Co-partition hash probe (PHJ match finding).
+"""Co-partition hash probe (PHJ match finding) and the group-join's fused
+probe + aggregate.
 
 Probe rows are laid out partition-major in capS-wide sub-blocks, each of
 which belongs to exactly one partition (`layout_probe_blocks`, the paper's
-probe-side sub-partitioning). The kernel stages that partition's padded
-build block (capR keys) in shared memory and finds each probe key's first
-match in it.
+probe-side sub-partitioning). Both kernels stage that partition's padded
+build block (capR keys) in shared memory and find each probe key's first
+match in it; `probe_agg` then folds the matched rows of the sub-block into
+one partial per distinct group key instead of writing a match per row.
 """
 from __future__ import annotations
 
@@ -47,6 +49,74 @@ def hash_probe(bkeys: torch.Tensor, off_r: torch.Tensor, probe_blocks: torch.Ten
     _build.check(lib, "hash_probe", err)
     LAUNCHES["hash_probe"] += 1
     return vid, hit
+
+
+# The kernel's shared memory holds the build block, the row values and the
+# masked group keys of one sub-block; the card lets a block use 227 KB.
+_SMEM_LIMIT = 232_448
+
+
+def probe_agg(bkeys: torch.Tensor, bvals: torch.Tensor, probe_blocks: torch.Tensor,
+              gk_blocks: torch.Tensor, pv_blocks: torch.Tensor, block_part: torch.Tensor,
+              col_sides):
+    """Fused probe + tile-local group partials, one per probe sub-block:
+    (pk (B, capS) of gk's type, ps (B, C, capS) float32, pc (B, capS) int32).
+    Slot s of sub-block b holds the group key of its row s, the sums of the
+    C aggregate columns and the count over the matched rows whose first row
+    with the same group key is s; KEY_SENTINEL and zeros where no row maps.
+
+    bkeys (P, capR) int32, bvals (P, Cb, capR) float32, probe_blocks
+    (B, capS) int32, gk_blocks (B, capS) int32 or int64, pv_blocks
+    (B, Cp, capS) float32, block_part (B,) int32. col_sides[c] is
+    ("probe", j) for pv_blocks[:, j] or ("build", j) for the matched row's
+    bvals[:, j]."""
+    B, cap_s = probe_blocks.shape
+    P, cap_r = bkeys.shape
+    if not probe_blocks.is_cuda:
+        return ref.probe_agg_blocks(bkeys, bvals, probe_blocks, gk_blocks, pv_blocks,
+                                    block_part, col_sides)
+    dev = probe_blocks.device
+    for name, t, dtypes in (("bkeys", bkeys, (torch.int32,)),
+                            ("bvals", bvals, (torch.float32,)),
+                            ("probe_blocks", probe_blocks, (torch.int32,)),
+                            ("gk_blocks", gk_blocks, (torch.int32, torch.int64)),
+                            ("pv_blocks", pv_blocks, (torch.float32,)),
+                            ("block_part", block_part, (torch.int32,))):
+        if t.dtype not in dtypes or not t.is_contiguous() or t.device != dev:
+            raise TypeError(f"{name} must be a contiguous {'/'.join(map(str, dtypes))} "
+                            f"tensor on {dev}, got {t.dtype} on {t.device}")
+    Cb, Cp, C = bvals.shape[1], pv_blocks.shape[1], len(col_sides)
+    if (bvals.shape != (P, Cb, cap_r) or gk_blocks.shape != (B, cap_s)
+            or pv_blocks.shape != (B, Cp, cap_s) or block_part.shape != (B,)):
+        raise ValueError(f"shapes do not agree: bkeys {tuple(bkeys.shape)}, bvals "
+                         f"{tuple(bvals.shape)}, probe_blocks {tuple(probe_blocks.shape)}, "
+                         f"gk_blocks {tuple(gk_blocks.shape)}, pv_blocks "
+                         f"{tuple(pv_blocks.shape)}, block_part {tuple(block_part.shape)}")
+    src = []
+    for side, j in col_sides:
+        if side not in ("probe", "build") or not 0 <= j < (Cp if side == "probe" else Cb):
+            raise ValueError(f"column source {(side, j)} is not in the {Cp} probe and "
+                             f"{Cb} build value columns")
+        src.append(j if side == "probe" else -j - 1)
+    smem = cap_s * (gk_blocks.element_size() + 4) + cap_r * 4 * (1 + Cb) + C * cap_s * 4
+    if cap_r < 1 or smem > _SMEM_LIMIT:
+        raise ValueError(f"a sub-block of {cap_s} rows against {cap_r} build keys with {Cb} "
+                         f"build and {C} output columns needs {smem} bytes of shared memory")
+    pk = torch.empty((B, cap_s), dtype=gk_blocks.dtype, device=dev)
+    ps = torch.empty((B, C, cap_s), dtype=torch.float32, device=dev)
+    pc = torch.empty((B, cap_s), dtype=torch.int32, device=dev)
+    if B == 0 or cap_s == 0:
+        return pk, ps, pc
+    col_src = torch.tensor(src, dtype=torch.int32).to(dev)
+    lib = _build.load("probe_agg")
+    err = lib.probe_agg(bkeys.data_ptr(), bvals.data_ptr(), probe_blocks.data_ptr(),
+                        gk_blocks.data_ptr(), pv_blocks.data_ptr(), block_part.data_ptr(),
+                        col_src.data_ptr(), B, P, cap_r, cap_s, Cb, Cp, C,
+                        gk_blocks.element_size(), pk.data_ptr(), ps.data_ptr(), pc.data_ptr(),
+                        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "probe_agg", err)
+    LAUNCHES["probe_agg"] += 1
+    return pk, ps, pc
 
 
 def layout_probe_blocks(keys_part: torch.Tensor, off: torch.Tensor, sz: torch.Tensor,

@@ -1,9 +1,12 @@
 """Dispatch between the hand-written kernels and their plain arms.
 
-Each entry takes `impl` in {"torch", "cuda"} or None. None resolves by the
-tensor's device: a CUDA tensor gets the kernel, a CPU tensor the plain arm;
-"cuda" on a CPU tensor raises (`common.resolve_impl`). A kernel that fails
-to build or launch raises: no arm catches it and carries on.
+The partition plan, the hash probe and the gather take `impl` in
+{"torch", "cuda"} or None. None resolves by the tensor's device: a CUDA
+tensor gets the kernel, a CPU tensor the plain arm; "cuda" on a CPU tensor
+raises (`common.resolve_impl`). The group-join's probe-aggregate and the
+sorted group sums have one arm, the kernel wrapper, which runs the
+kernel's plain version for CPU tensors. A kernel that fails to build or
+launch raises: no arm catches it and carries on.
 """
 from __future__ import annotations
 
@@ -13,9 +16,11 @@ import torch
 
 from . import gather as _gather
 from . import ref
-from .common import KERNELS, LAUNCHES, ceil_div, resolve_impl
+from . import segsum as _segsum
+from .common import KERNELS, KEY_SENTINEL, LAUNCHES, ceil_div, resolve_impl
 from .hash_probe import hash_probe as _hash_probe_kernel
 from .hash_probe import layout_probe_blocks
+from .hash_probe import probe_agg as _probe_agg_kernel
 from .radix_partition import partition_plan as _partition_plan_radix
 
 # Arm of the partition planner that `core.primitives` resolves impl=None
@@ -69,6 +74,14 @@ def _partition_plan_torch(digits, num_partitions, carry):
     return perm, carried, offsets, sizes
 
 
+def sort_plan(keys: torch.Tensor):
+    """Stable sort plan: (sorted_keys, perm int32), one stable torch.sort
+    (the counterpart of the reference's 'xla' arm; its sort-free 'radix'
+    arm is not ported yet)."""
+    sk, perm = torch.sort(keys, stable=True)
+    return sk, perm.to(torch.int32)
+
+
 def apply_partition(dest: torch.Tensor, *arrays: torch.Tensor):
     """Materialize a partition from scatter-form destinations: invert dest
     and gather each array through the inverse."""
@@ -119,3 +132,166 @@ def clustered_gather(src: torch.Tensor, idx: torch.Tensor, impl: str | None = No
     if impl == "torch":
         return ref.clustered_gather(src, idx)
     return _gather.clustered_gather(src.contiguous(), idx.to(torch.int32).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# reductions over runs of a key-sorted column
+# ---------------------------------------------------------------------------
+def sorted_runs(sk: torch.Tensor, num_groups: int):
+    """Runs of equal valid keys in a key-sorted column: (valid, rid, starts,
+    n_found). rid is each row's run id (non-decreasing; -1 before the first
+    run); run r < num_groups spans rows [starts[r], starts[r + 1]), where
+    rows past its last key can only be KEY_SENTINEL rows (masked by valid);
+    runs past the last one are empty. n_found (0-d int32) counts all runs."""
+    valid = sk != KEY_SENTINEL
+    head = torch.cat([valid[:1], (sk[1:] != sk[:-1]) & valid[1:]])
+    rid = torch.cumsum(head, 0, dtype=torch.int32) - 1
+    n_found = rid[-1] + 1
+    starts = torch.searchsorted(
+        rid, torch.arange(num_groups + 1, dtype=torch.int32, device=sk.device), out_int32=True)
+    return valid, rid, starts, n_found
+
+
+def run_keys(sk: torch.Tensor, starts: torch.Tensor, n_found: torch.Tensor) -> torch.Tensor:
+    """The key of each run of `sorted_runs`, KEY_SENTINEL past the last."""
+    g = starts.shape[0] - 1
+    present = torch.arange(g, device=sk.device) < n_found
+    return torch.where(present, sk[starts[:-1].clamp(max=sk.shape[0] - 1)], KEY_SENTINEL)
+
+
+class RunSums:
+    """Sums over the runs [starts[r], starts[r + 1]) of a key-sorted column,
+    in the column's dtype: `RunSums(starts)(vals)`. One instance serves every
+    column summed over the same runs.
+
+    Integers: differences of a prefix sum, exact under wrap-around. Floats:
+    a segmented inclusive scan that doubles its stride each step (one step
+    per bit of the longest run), read at each run's last row. Each result
+    depends only on its run's rows, added in a fixed tree order, so the sums
+    are the same on every run. A float scatter-add is not; a difference of a
+    global prefix sum loses the digits of short runs behind a large prefix;
+    a segment reduction (`torch.segment_reduce`) spends a thread block on
+    each run, which took about 22 ms a column for 15M short runs on an H100
+    (chip_smoke.py's profile of the group-join). The scan covers only the
+    rows inside the runs (sentinel keys sort first). Its geometry (those
+    rows, the longest run, each row's run start) costs one host sync; it is
+    computed at the first float column and shared by the rest."""
+
+    def __init__(self, starts: torch.Tensor):
+        self.starts = starts
+        self._geometry = None
+
+    def _scan_geometry(self):
+        if self._geometry is None:
+            starts = self.starts
+            lengths = torch.diff(starts)
+            lo, hi, longest = (torch.stack([starts[0], starts[-1], lengths.max()]).tolist()
+                               if lengths.shape[0] else (0, 0, 0))
+            rel = starts - lo
+            pos = torch.arange(hi - lo, dtype=torch.int32, device=starts.device)
+            # each row's run is the number of runs that end at or before it
+            run_start = rel[torch.searchsorted(rel[1:], pos, right=True)]
+            self._geometry = (lo, hi, longest, pos, run_start, lengths > 0,
+                              (rel[1:] - 1).clamp(min=0))
+        return self._geometry
+
+    def __call__(self, vals: torch.Tensor) -> torch.Tensor:
+        starts = self.starts
+        if not vals.dtype.is_floating_point:
+            ecs = torch.cat([vals.new_zeros(1), torch.cumsum(vals, 0, dtype=vals.dtype)])
+            return ecs[starts[1:]] - ecs[starts[:-1]]
+        lo, hi, longest, pos, run_start, nonempty, last = self._scan_geometry()
+        if hi == lo:
+            return vals.new_zeros(starts.shape[0] - 1)
+        x = vals[lo:hi].clone()
+        d = 1
+        while d < longest:
+            x[d:] += torch.where(pos[d:] - d >= run_start[d:], x[:-d], 0.0)
+            d *= 2
+        return torch.where(nonempty, x[last], 0.0)
+
+
+# ---------------------------------------------------------------------------
+# fused probe + accumulate (group-join)
+# ---------------------------------------------------------------------------
+def _combine_group_partials(pk, ps_cols, pc, num_groups: int, key_dtype):
+    """Combine (key, sums..., count) partials into the dense accumulator:
+    (keys (G,), sums (C, G) float32, counts (G,) int32, n_found), groups
+    in key order. One stable sort by key carries every column; each group's
+    sums and count are taken over its run of partials (`RunSums`, whose
+    geometry all the sum columns share)."""
+    order = torch.sort(pk, stable=True).indices
+    sk = pk[order]
+    valid, _, starts, n_found = sorted_runs(sk, num_groups)
+    run_sums = RunSums(starts)
+    keys_o = run_keys(sk, starts, n_found).to(key_dtype)
+    if ps_cols:
+        sums_o = torch.stack([run_sums(torch.where(valid, s[order], 0.0)) for s in ps_cols])
+    else:
+        sums_o = torch.zeros((0, num_groups), dtype=torch.float32, device=pk.device)
+    counts_o = run_sums(torch.where(valid, pc[order], 0).to(torch.int32))
+    return keys_o, sums_o, counts_o, torch.clamp(n_found, max=num_groups)
+
+
+def groupjoin_probe_agg(bkeys: torch.Tensor, bvals: torch.Tensor | None,
+                        probe_keys_part: torch.Tensor, gk_part: torch.Tensor,
+                        pv_part: torch.Tensor | None, probe_off: torch.Tensor,
+                        probe_sz: torch.Tensor, num_groups: int, *, col_sides,
+                        impl: str | None = None):
+    """Co-partition pk_fk probe fused with grouped accumulation. bkeys
+    (P, capR) build key blocks, bvals (P, Cb, capR) build value blocks or
+    None, the partitioned probe join keys and group keys, pv_part (Cp, n)
+    probe value columns or None, the probe partitions' offsets and sizes;
+    col_sides[c] is ("probe" | "build", j) per sum column. Returns
+    (group_keys (G,), sums (C, G) float32, counts (G,) int32, valid_count).
+
+    The probe side is laid out in capS-wide sub-blocks (static worst case
+    n / capS + P), the probe_agg kernel reduces each to per-slot partials
+    (its plain version does for CPU tensors), and one combine gives the
+    groups; the joined rows are never written. impl is None or 'cuda',
+    which raises for CPU tensors; the group-join's plain arm is
+    `phj_groupjoin(probe_impl='torch')`."""
+    if impl not in (None, "cuda"):
+        raise ValueError(f"unknown impl {impl!r}; allowed: cuda (CPU tensors take the "
+                         "kernel's plain version)")
+    resolve_impl(impl, probe_keys_part)
+    P, cap_s = bkeys.shape
+    n = probe_keys_part.shape[0]
+    dev = probe_keys_part.device
+    if bvals is None:
+        bvals = torch.zeros((P, 0, cap_s), dtype=torch.float32, device=dev)
+    if pv_part is None:
+        pv_part = torch.zeros((0, n), dtype=torch.float32, device=dev)
+    pk, part, src_idx = layout_probe_blocks(probe_keys_part, probe_off, probe_sz, cap_s,
+                                            ceil_div(n, cap_s) + P)
+    pad = src_idx >= 0
+    safe = src_idx.clamp(0, max(n - 1, 0))
+    gkb = torch.where(pad, gk_part[safe], KEY_SENTINEL)
+    # (B, Cp, capS): every probe value column laid out with the same block map
+    pvb = torch.where(pad[:, None, :], pv_part.to(torch.float32)[:, safe].permute(1, 0, 2),
+                      0.0).contiguous()
+    del safe
+    pkeys, psums, pcounts = _probe_agg_kernel(bkeys.contiguous(),
+                                              bvals.to(torch.float32).contiguous(), pk, gkb,
+                                              pvb, part, col_sides)
+    del pk, part, src_idx, gkb, pvb
+    return _combine_group_partials(pkeys.reshape(-1),
+                                   [psums[:, c].reshape(-1) for c in range(len(col_sides))],
+                                   pcounts.reshape(-1), num_groups, gk_part.dtype)
+
+
+# ---------------------------------------------------------------------------
+# grouped aggregation over sorted keys
+# ---------------------------------------------------------------------------
+def groupby_sorted_sum(sorted_keys: torch.Tensor, values: torch.Tensor, num_groups: int):
+    """Group sums over key-sorted rows: per-tile partials over tiles of
+    segsum.TILE rows (the segsum_partials kernel; its plain version for CPU
+    tensors), then one stable sort of the partials by key and a sum over
+    each run. Returns (group_keys (G,), float32 sums (G,), valid_count)."""
+    pk, ps, _ = _segsum.segsum_partials(sorted_keys.contiguous(),
+                                        values.to(torch.float32).contiguous())
+    order = torch.sort(pk, stable=True).indices
+    sk = pk[order]
+    valid, _, starts, n_found = sorted_runs(sk, num_groups)
+    sums = RunSums(starts)(torch.where(valid, ps[order], 0.0))
+    return run_keys(sk, starts, n_found), sums, torch.clamp(n_found, max=num_groups)

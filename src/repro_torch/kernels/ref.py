@@ -2,7 +2,9 @@
 
 Each function computes what its kernel computes, with ordinary torch ops.
 The wrappers run these for CPU tensors; on the card they are what each
-kernel is held against, and they must agree with it exactly."""
+kernel is held against. Keys, layouts and counts must agree exactly; the
+float32 sums are taken in the kernel's order (row order within a slot), so
+they agree too unless a compiler reorders an add."""
 from __future__ import annotations
 
 import torch
@@ -76,3 +78,90 @@ def clustered_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     safe = idx.clamp(0, src.shape[0] - 1)
     out = src.index_select(0, safe)
     return torch.where(idx >= 0, out, torch.zeros((), dtype=src.dtype, device=src.device))
+
+
+def first_equal_rows(keys: torch.Tensor) -> torch.Tensor:
+    """For (B, cap) keys, the index of the first row of each row's block
+    that holds the same key (int64), by a stable sort within each block."""
+    ks, order = torch.sort(keys, dim=1, stable=True)
+    head = torch.cat([torch.ones_like(ks[:, :1], dtype=torch.bool), ks[:, 1:] != ks[:, :-1]],
+                     dim=1)
+    pos = torch.arange(keys.shape[1], device=keys.device)
+    run_start = torch.cummax(torch.where(head, pos, 0), dim=1).values
+    return torch.empty_like(order).scatter_(1, order, torch.gather(order, 1, run_start))
+
+
+def probe_agg_blocks(bkeys: torch.Tensor, bvals: torch.Tensor, probe_blocks: torch.Tensor,
+                     gk_blocks: torch.Tensor, pv_blocks: torch.Tensor, block_part: torch.Tensor,
+                     col_sides, chunk: int = 1 << 15):
+    """Fused probe + tile-local group partials (kernels/hash_probe.probe_agg),
+    for `chunk` sub-blocks at a time. Per sub-block: each row's first hit in
+    its build block (`hash_probe_blocks` with zero offsets gives the slot),
+    the group key masked to KEY_SENTINEL on a miss, the row's slot (the
+    first row of the sub-block with the same masked key, from a stable
+    sort), then per slot the key, a float32 sum per column of col_sides and
+    an int32 count, summed over the slot's rows in row order."""
+    B, cap_s = probe_blocks.shape
+    P = bkeys.shape[0]
+    C = len(col_sides)
+    dev = probe_blocks.device
+    pk = torch.full((B, cap_s), KEY_SENTINEL, dtype=gk_blocks.dtype, device=dev)
+    ps = torch.zeros((B, C, cap_s), dtype=torch.float32, device=dev)
+    pc = torch.zeros((B, cap_s), dtype=torch.int32, device=dev)
+    zero_off = torch.zeros(P, dtype=torch.int32, device=dev)
+    for b0 in range(0, B, chunk):
+        part = block_part[b0:b0 + chunk]
+        nb = part.shape[0]
+        hit, matched = hash_probe_blocks(bkeys, zero_off, probe_blocks[b0:b0 + chunk].reshape(-1),
+                                         part.repeat_interleave(cap_s))
+        hit, matched = hit.reshape(nb, cap_s), matched.bool().reshape(nb, cap_s)
+        gke = torch.where(matched, gk_blocks[b0:b0 + chunk], KEY_SENTINEL)
+        rep = first_equal_rows(gke)
+        rep = torch.where(gke != KEY_SENTINEL, rep, cap_s)  # cap_s: a spare slot
+        hs = hit.clamp(min=0).long()
+        vals = torch.zeros((nb, C, cap_s), dtype=torch.float32, device=dev)
+        for c, (side, j) in enumerate(col_sides):
+            v = (torch.gather(bvals[part, j], 1, hs) if side == "build"
+                 else pv_blocks[b0:b0 + chunk, j])
+            vals[:, c] = torch.where(matched, v.to(torch.float32), 0.0)
+        acc = torch.zeros((nb, C, cap_s + 1), dtype=torch.float32, device=dev)
+        cnt = torch.zeros((nb, cap_s + 1), dtype=torch.int32, device=dev)
+        bi = torch.arange(nb, device=dev)
+        for i in range(cap_s):  # row order: each step adds one row to its slot
+            r = rep[:, i]
+            acc[bi, :, r] += vals[:, :, i]
+            cnt[bi, r] += 1
+        pc[b0:b0 + chunk] = cnt[:, :cap_s]
+        ps[b0:b0 + chunk] = acc[:, :, :cap_s]
+        pk[b0:b0 + chunk] = torch.where(cnt[:, :cap_s] > 0, gke, KEY_SENTINEL)
+    return pk, ps, pc
+
+
+def segsum_partials(sorted_keys: torch.Tensor, values: torch.Tensor, tile: int):
+    """Per-tile partials over key-sorted rows (kernels/segsum.py): slot
+    t * tile + g holds tile t's run g of equal valid keys as (key, float32
+    sum in row order, int32 count); KEY_SENTINEL and zeros past the last
+    run. The last tile is padded with KEY_SENTINEL keys."""
+    n = sorted_keys.shape[0]
+    dev = sorted_keys.device
+    pad = ceil_div(n, tile) * tile - n
+    k = torch.cat([sorted_keys, torch.full((pad,), KEY_SENTINEL, dtype=sorted_keys.dtype,
+                                           device=dev)]).reshape(-1, tile)
+    v = torch.cat([values.to(torch.float32),
+                   torch.zeros(pad, dtype=torch.float32, device=dev)]).reshape(-1, tile)
+    T = k.shape[0]
+    valid = k != KEY_SENTINEL
+    head = torch.cat([torch.ones((T, 1), dtype=torch.bool, device=dev),
+                      k[:, 1:] != k[:, :-1]], dim=1) & valid
+    lgid = torch.where(valid, torch.cumsum(head, 1) - 1, tile)  # tile: a spare slot
+    acc = torch.zeros((T, tile + 1), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((T, tile + 1), dtype=torch.int32, device=dev)
+    ti = torch.arange(T, device=dev)
+    for i in range(tile):  # row order: each step adds one row to its run
+        g = lgid[:, i]
+        acc[ti, g] += v[:, i]
+        cnt[ti, g] += 1
+    pk = torch.full((T, tile + 1), KEY_SENTINEL, dtype=sorted_keys.dtype, device=dev)
+    pk.scatter_(1, torch.where(head, lgid, tile), k)  # one head per run; the spare is cut
+    return (pk[:, :tile].reshape(-1), acc[:, :tile].reshape(-1),
+            cnt[:, :tile].reshape(-1))

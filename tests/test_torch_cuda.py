@@ -17,6 +17,7 @@ from repro_torch.kernels import gather as kgather  # noqa: E402
 from repro_torch.kernels import hash_probe as kprobe  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import radix_partition as krp  # noqa: E402
+from repro_torch.kernels import segsum as kseg  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -114,10 +115,176 @@ def test_j2_slice_on_card_equals_cpu(dev):
         G, gc = T.group_aggregate(J, key="k", aggs=aggs, num_groups=R["k"].shape[0],
                                   strategy="partition")
         moved = {k: v - before[k] for k, v in ops.launch_counts().items()}
-        assert all(moved.values()) if where == "cuda" else not any(moved.values())
+        if where == "cuda":
+            assert all(moved[k] for k in ("block_histograms", "partition_ranks", "hash_probe",
+                                          "clustered_gather"))
+            assert moved["probe_agg"] == moved["segsum_partials"] == 0
+        else:
+            assert not any(moved.values())
         out[where] = (T.table_to_numpy(J), int(jc), T.table_to_numpy(G), int(gc))
     (j0, c0, g0, gc0), (j1, c1, g1, gc1) = out["cpu"], out["cuda"]
     assert c0 == c1 and gc0 == gc1
     for a, b in ((j0, j1), (g0, g1)):
         for name in a:
             np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the group-join's fused probe + aggregate, and the per-tile segmented sums
+# ---------------------------------------------------------------------------
+# Keys, slots and counts must be equal. The kernels and their plain versions
+# both add each slot's rows in row order in float32, so the sums agree to
+# the last bit unless a compiler reorders an add; the stated tolerance is
+# one ulp of sums below 2^10.
+SUM_TOL = dict(rtol=0, atol=2 ** -13)
+
+
+def _probe_agg_case(dev, rng, B, P, cap, key_dtype=np.int32, n_groups=7):
+    """Sub-blocks of probe keys against build blocks of unique keys: half
+    match, a fifth are sentinels; sub-block 1 is all padding, sub-block 2
+    misses every key, and sub-block 3 matches every row with one group key
+    (a tile of cap equal keys)."""
+    bkeys = np.full((P, cap), -1, np.int32)
+    for p in range(P):
+        nb = int(rng.integers(1, cap + 1))
+        bkeys[p, :nb] = rng.choice(1 << 20, nb, replace=False)
+    part = rng.integers(0, P, B).astype(np.int32)
+    probe = rng.integers(1 << 21, 1 << 22, (B, cap)).astype(np.int32)
+    hit = rng.random((B, cap)) < 0.5
+    hit[3] = True
+    for b in range(B):
+        live = bkeys[part[b]][bkeys[part[b]] >= 0]
+        probe[b, hit[b]] = rng.choice(live, int(hit[b].sum()))
+    probe[rng.random((B, cap)) < 0.2] = -1
+    probe[1] = -1
+    probe[2] = rng.integers(1 << 21, 1 << 22, cap)
+    probe[3] = rng.choice(bkeys[part[3]][bkeys[part[3]] >= 0], cap)
+    gk = rng.integers(0, n_groups, (B, cap)).astype(key_dtype)
+    if key_dtype == np.int64:
+        gk += 1 << 40
+    gk[3] = gk[3, 0]
+    bvals = rng.normal(size=(P, 2, cap)).astype(np.float32)
+    pv = rng.normal(size=(B, 3, cap)).astype(np.float32)
+    return tuple(_on(dev, a) for a in (bkeys, bvals, probe, gk, pv, part))
+
+
+@pytest.mark.parametrize("cap", [256, 32, 512])
+@pytest.mark.parametrize("key_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("col_sides", [(("probe", 2), ("build", 0), ("build", 1)),
+                                       (("build", 1),), ()],
+                         ids=["probe_and_build", "build_only", "count_only"])
+def test_probe_agg_kernel_equals_plain(dev, cap, key_dtype, col_sides):
+    args = _probe_agg_case(dev, np.random.default_rng(cap), 40, 9, cap, key_dtype)
+    before = ops.launch_counts()["probe_agg"]
+    pk, ps, pc = kprobe.probe_agg(*args, col_sides)
+    assert ops.launch_counts()["probe_agg"] == before + 1
+    rk, rs, rc = ref.probe_agg_blocks(*args, col_sides)
+    assert pk.dtype == rk.dtype == args[3].dtype
+    assert torch.equal(pk, rk) and torch.equal(pc, rc)
+    assert ps.shape == rs.shape == (40, len(col_sides), cap)
+    torch.testing.assert_close(ps, rs, **SUM_TOL)
+    assert int(pc[1].sum()) == int(pc[2].sum()) == 0  # all padding, all misses
+    assert int(pc[3, 0]) == cap and int(pc[3, 1:].sum()) == 0  # one group owns the tile
+
+
+def test_probe_agg_kernel_many_groups_per_tile(dev):
+    """Wide group keys: most rows own their slot."""
+    args = _probe_agg_case(dev, np.random.default_rng(1), 300, 64, 256, n_groups=1 << 30)
+    out = kprobe.probe_agg(*args, (("probe", 0), ("build", 1)))
+    want = ref.probe_agg_blocks(*args, (("probe", 0), ("build", 1)))
+    assert torch.equal(out[0], want[0]) and torch.equal(out[2], want[2])
+    torch.testing.assert_close(out[1], want[1], **SUM_TOL)
+
+
+def _sorted_case(rng, n, key_dtype=np.int32):
+    """Key-sorted rows: sentinel rows first, runs of 1-20 rows, one run of
+    256 rows on a tile edge, one of 700 across tiles, and a ragged tail."""
+    lengths = rng.integers(1, 21, max(n, 8))
+    lengths[2], lengths[5] = 256, 700
+    keys = np.repeat(np.arange(lengths.shape[0], dtype=np.int64) * 5, lengths)[:n]
+    keys[:3] = -1
+    if key_dtype == np.int64:
+        keys = np.where(keys >= 0, keys + (1 << 40), -1)
+    return keys.astype(key_dtype), rng.normal(size=n).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,tile", [(100_003, 256), (5000, 64), (2, 256), (70_000, 1024)])
+@pytest.mark.parametrize("key_dtype", [np.int32, np.int64])
+def test_segsum_kernel_equals_plain(dev, n, tile, key_dtype):
+    keys, vals = _sorted_case(np.random.default_rng(n), n, key_dtype)
+    k, v = _on(dev, keys), _on(dev, vals)
+    before = ops.launch_counts()["segsum_partials"]
+    pk, ps, pc = kseg.segsum_partials(k, v, tile)
+    assert ops.launch_counts()["segsum_partials"] == before + 1
+    rk, rs, rc = ref.segsum_partials(k, v, tile)
+    assert torch.equal(pk, rk) and torch.equal(pc, rc)
+    torch.testing.assert_close(ps, rs, **SUM_TOL)
+    assert int(pc.sum()) == int((k != -1).sum())
+
+
+def test_segsum_tile_of_equal_keys(dev):
+    k = torch.full((512,), 9, dtype=torch.int32, device=dev)
+    pk, ps, pc = kseg.segsum_partials(k, torch.ones(512, device=dev), 256)
+    assert pk.tolist()[::256] == [9, 9] and pc.tolist()[::256] == [256, 256]
+    assert int((pk != -1).sum()) == 2 and float(ps.sum()) == 512.0
+
+
+def test_sort_group_bys_on_card_equal_cpu(dev):
+    """sort and sort_pallas on the card against the same call on the CPU:
+    keys, counts and integer sums equal, float sums to SUM_TOL; sort_pallas
+    runs one segsum_partials launch per pass (a hoisted count pass and one
+    per summed column)."""
+    rng = np.random.default_rng(4)
+    n = 300_000
+    d = {"k": rng.integers(0, 40_000, n).astype(np.int32),
+         "vi": rng.integers(-(1 << 40), 1 << 40, n),
+         "vf": rng.normal(size=n).astype(np.float32)}
+    d["k"][::31] = -1
+    for strategy, aggs, passes in (("sort", {"vi": "sum", "vf": "max", "k": "count"}, 0),
+                                   ("sort_pallas", {"vf": "sum", "vi": "mean", "k": "count"}, 3)):
+        out = []
+        for where in ("cpu", "cuda"):
+            before = ops.launch_counts()["segsum_partials"]
+            g, c = T.group_aggregate(T.table_from_numpy(d, device=where), aggs=aggs,
+                                     num_groups=50_000, strategy=strategy)
+            moved = ops.launch_counts()["segsum_partials"] - before
+            assert moved == (passes if where == "cuda" else 0)
+            out.append((T.table_to_numpy(g), int(c)))
+        (a, ca), (b, cb) = out
+        assert ca == cb
+        for name in a:
+            if a[name].dtype.kind == "f":
+                np.testing.assert_allclose(b[name], a[name], rtol=1e-5, atol=1e-4)
+            else:
+                np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+
+
+def test_groupjoin_on_card_fused_equals_torch_arm_and_reruns_bit_identically(dev):
+    """Q18's group by the join key at J2 scale 1/256: the fused arm (one
+    probe_agg launch, no other kernel but the plans' passes) against the torch arm
+    with the sort strategy on the card, and a second fused run equal bit for
+    bit."""
+    R, S, _ = relgen.generate_tpc("J2", scale=1 / 256, payload_bytes=8)
+    Rt, St = T.table_from_numpy(R, device=dev), T.table_from_numpy(S, device=dev)
+    aggs = {"s1": "sum", "r1": "sum", "r2": "count"}
+    kw = dict(key="k", group_key="k", aggs=aggs, num_groups=R["k"].shape[0])
+    ops.reset_launch_counts()
+    g, c = T.phj_groupjoin(Rt, St, **kw)
+    got = ops.launch_counts()
+    # one histogram and one rank launch per plan pass of each side
+    assert got["block_histograms"] == got["partition_ranks"] > 0
+    assert got["probe_agg"] == 1
+    assert got["hash_probe"] == got["clustered_gather"] == got["segsum_partials"] == 0
+    g2, c2 = T.phj_groupjoin(Rt, St, **kw)
+    assert int(c) == int(c2) and all(torch.equal(g[n], g2[n]) for n in g.column_names)
+    t, tc = T.phj_groupjoin(Rt, St, probe_impl="torch", agg_strategy="sort", **kw)
+    m = int(c)
+    assert m == int(tc) == int((np.bincount(S["k"]) > 0).sum())
+    assert torch.equal(g["k"], t["k"]) and torch.equal(g["r2_count"], t["r2_count"])
+    for name in ("s1_sum", "r1_sum"):
+        exact = t[name][:m].double()
+        assert g[name].dtype == torch.float32 and t[name].dtype == torch.int64
+        # float32 of int64 values below 2^31: each value and each add
+        # rounds by at most 2^-24 relative
+        err = (g[name][:m].double() - exact).abs()
+        assert bool((err <= 2 * g["r2_count"][:m].double() * 2 ** -24 * exact.abs()).all())

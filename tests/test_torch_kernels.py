@@ -15,7 +15,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import hash_join as jhj  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
-from repro.kernels.hash_probe import hash_probe_pallas, layout_probe_blocks  # noqa: E402
+from repro.kernels.hash_probe import (hash_probe_pallas, layout_probe_blocks,  # noqa: E402
+                                      probe_agg_pallas)
+from repro.kernels.segsum import segsum_partials_pallas  # noqa: E402
 from repro.kernels.radix_partition import (block_histograms_pallas,  # noqa: E402
                                            partition_ranks_pallas)
 from repro_torch.core import Table as TTable  # noqa: E402
@@ -24,6 +26,8 @@ from repro_torch.core import hash_join as thj  # noqa: E402
 from repro_torch.kernels import hash_probe as thp  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import radix_partition as trp  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import segsum as tseg  # noqa: E402
 
 
 def _t(a):
@@ -235,6 +239,245 @@ def test_clustered_gather_any_index():
 
 
 # ---------------------------------------------------------------------------
+# fused probe + aggregate (group-join)
+# ---------------------------------------------------------------------------
+# float32 sums of at most capS values of N(0, 1) in another order (one-hot
+# matmuls in JAX, row order in the port): both within a few ulp of sums of
+# magnitude < 50
+SUM_TOL = dict(rtol=1e-5, atol=1e-4)
+COL_SIDES = {
+    "probe_and_build": (("probe", 1), ("build", 0), ("probe", 0), ("build", 1)),
+    "build_only": (("build", 1),),
+    "count_only": (),
+}
+
+
+def _probe_agg_inputs(seed, B=14, P=6, cap=32):
+    """Sub-blocks of probe keys against build blocks of unique keys: about
+    half the keys match, a fifth are sentinels; sub-block 2 is all padding
+    and sub-block 5 misses every key. Group keys come from a small range so
+    that slots own several rows."""
+    rng = np.random.default_rng(seed)
+    bkeys = np.full((P, cap), -1, np.int32)
+    for p in range(P):
+        nb = int(rng.integers(1, cap + 1))
+        bkeys[p, :nb] = rng.choice(10_000, nb, replace=False)
+    part = rng.integers(0, P, B).astype(np.int32)
+    probe = rng.integers(10_000, 20_000, (B, cap)).astype(np.int32)  # misses
+    hit = rng.random((B, cap)) < 0.5
+    for b in range(B):
+        live = bkeys[part[b]][bkeys[part[b]] >= 0]
+        probe[b, hit[b]] = rng.choice(live, int(hit[b].sum()))
+    probe[rng.random((B, cap)) < 0.2] = -1
+    probe[2] = -1
+    probe[5] = rng.integers(10_000, 20_000, cap)
+    gk = rng.integers(0, 7, (B, cap)).astype(np.int32)
+    bvals = rng.normal(size=(P, 2, cap)).astype(np.float32)
+    pv = rng.normal(size=(B, 2, cap)).astype(np.float32)
+    return bkeys, bvals, probe, gk, pv, part
+
+
+@pytest.mark.parametrize("cap", [32, 256])
+@pytest.mark.parametrize("sides", list(COL_SIDES))
+def test_probe_agg_blocks_match_pallas_kernel(sides, cap):
+    """The kernel's plain version against the Pallas kernel in interpret
+    mode: keys and counts exactly, float32 sums to SUM_TOL. For count only,
+    the JAX kernel is fed one dummy column (as its ops layer does) and the
+    port none."""
+    bkeys, bvals, probe, gk, pv, part = _probe_agg_inputs(cap, cap=cap)
+    col_sides = COL_SIDES[sides]
+    jk, js, jc = probe_agg_pallas(*map(jnp.asarray, (bkeys, bvals, probe, gk, pv, part)),
+                                  col_sides=col_sides or (("probe", 0),), interpret=True)
+    pk, ps, pc = thp.probe_agg(*map(_t, (bkeys, bvals, probe, gk, pv, part)), col_sides)
+    assert pk.dtype == torch.int32 and ps.dtype == torch.float32 and pc.dtype == torch.int32
+    assert ps.shape == (probe.shape[0], len(col_sides), cap)
+    _eq(jk, pk)
+    _eq(jc, pc)
+    if col_sides:
+        np.testing.assert_allclose(ps.numpy(), np.asarray(js), **SUM_TOL)
+    assert int(pc[2].sum()) == 0 and int(pc[5].sum()) == 0  # all padding, all misses
+    assert bool((pk[2] == -1).all()) and bool((pk[5] == -1).all())
+    assert int(pc.sum()) > 0 and int((pc > 1).sum()) > 0  # slots own several rows
+
+
+def test_probe_agg_blocks_int64_group_keys():
+    """int64 group keys (beyond the JAX package's 32-bit integers) give the
+    same slots, counts and sums as the same keys in int32, shifted."""
+    bkeys, bvals, probe, gk, pv, part = _probe_agg_inputs(7)
+    sides = COL_SIDES["probe_and_build"]
+    a = thp.probe_agg(*map(_t, (bkeys, bvals, probe, gk, pv, part)), sides)
+    gk64 = gk.astype(np.int64) + (1 << 40)
+    b = thp.probe_agg(*map(_t, (bkeys, bvals, probe, gk64, pv, part)), sides)
+    assert b[0].dtype == torch.int64
+    k32 = a[0].numpy().astype(np.int64)
+    _eq(np.where(k32 >= 0, k32 + (1 << 40), -1), b[0])
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+
+
+# ---------------------------------------------------------------------------
+# per-tile segmented sums
+# ---------------------------------------------------------------------------
+def _sorted_keys(seed, n):
+    """Key-sorted rows: a few sentinel rows first (they sort before every
+    valid key), runs of 1-11 rows, and one run of 300 rows across tile
+    edges."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, 12, max(n, 4))
+    lengths[3] = 300
+    keys = np.repeat(np.arange(lengths.shape[0], dtype=np.int32) * 3, lengths)[:n]
+    keys[:5] = -1
+    return keys, rng.normal(size=n).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,tile", [(1, 256), (1000, 256), (4096, 256), (777, 64)])
+def test_segsum_partials_match_pallas_kernel(n, tile):
+    keys, vals = _sorted_keys(n, n)
+    jk, js, jc = segsum_partials_pallas(jnp.asarray(keys), jnp.asarray(vals), tile=tile,
+                                        interpret=True)
+    pk, ps, pc = tseg.segsum_partials(_t(keys), _t(vals), tile)  # the plain version
+    assert pk.shape == ps.shape == pc.shape == (-(-n // tile) * tile,)
+    assert pc.dtype == torch.int32 and ps.dtype == torch.float32
+    _eq(jk, pk)
+    _eq(jc, pc)
+    np.testing.assert_allclose(ps.numpy(), np.asarray(js), **SUM_TOL)
+    assert int(pc.sum()) == int((keys != -1).sum())
+
+
+def test_segsum_partials_int64_keys_and_equal_tile():
+    """A tile of 256 equal keys is one partial; int64 keys keep their type."""
+    keys = np.r_[np.full(256, 5), np.full(300, 1 << 40), [(1 << 40) + 1]].astype(np.int64)
+    vals = np.ones(keys.shape[0], np.float32)
+    pk, ps, pc = tref.segsum_partials(_t(keys), _t(vals), 256)
+    assert pk.dtype == torch.int64
+    live = pk != -1
+    _eq(np.array([5, 1 << 40, 1 << 40, (1 << 40) + 1]), pk[live])
+    _eq(np.array([256, 256, 44, 1], np.int32), pc[live])
+    _eq(np.array([256, 256, 44, 1], np.float32), ps[live])
+
+
+def _groupjoin_inputs(seed, match_ratio=0.8, p_bits=4, cap=256):
+    """Partitioned build and probe sides of a small pk_fk join from the
+    port's planner (which equals the JAX one), with two probe value columns,
+    two build value columns and a probe-side group key of a few hundred
+    values."""
+    rng = np.random.default_rng(seed)
+    P = 1 << p_bits
+    n_r, n_s = 900, 3000
+    rkeys = rng.permutation(5000)[:n_r].astype(np.int32)
+    skeys = rng.choice(rkeys, n_s).astype(np.int32)
+    miss = rng.random(n_s) > match_ratio
+    skeys[miss] = rng.integers(6000, 9000, int(miss.sum()))
+    skeys[::53] = -1
+    perm_r, _, off_r, sz_r = tops.partition_plan(thj._digits(_t(rkeys), p_bits, True), P + 1,
+                                                 impl="torch")
+    perm_s, _, off_s, sz_s = tops.partition_plan(thj._digits(_t(skeys), p_bits, True), P + 1,
+                                                 impl="torch")
+    bkeys, _, _ = thj.build_blocks(_t(rkeys)[perm_r], off_r[:P], sz_r[:P], cap)
+    bv = _t(rng.normal(size=(2, n_r)).astype(np.float32))[:, perm_r]
+    bvals = torch.stack([thj.blocked_partitions(c, off_r[:P], sz_r[:P], cap, 0.0)[0]
+                         for c in bv], dim=1)
+    gk = _t(rng.integers(0, 400, n_s).astype(np.int32))[perm_s]
+    pv = _t(rng.normal(size=(2, n_s)).astype(np.float32))[:, perm_s]
+    return dict(bkeys=bkeys, bvals=bvals, off_r=off_r[:P], probe_keys_part=_t(skeys)[perm_s],
+                gk_part=gk, pv_part=pv, probe_off=off_s[:P], probe_sz=sz_s[:P])
+
+
+@pytest.mark.parametrize("sides", list(COL_SIDES))
+def test_groupjoin_probe_agg_matches_jax_arms(sides):
+    """The port's one arm (layout, the kernel's plain version on the CPU,
+    combine) against the JAX xla and pallas arms: keys, counts and valid
+    counts exactly, sums to SUM_TOL."""
+    a = _groupjoin_inputs(11)
+    if sides == "count_only":
+        a["bvals"] = a["pv_part"] = None
+    col_sides = COL_SIDES[sides]
+    G = 300  # fewer than the groups present: the overflow is dropped alike
+    j = {k: None if v is None else jnp.asarray(v.numpy()) for k, v in a.items()}
+    keys, sums, counts, found = tops.groupjoin_probe_agg(
+        *(v for k, v in a.items() if k != "off_r"), G, col_sides=col_sides)
+    assert sums.shape == (len(col_sides), G) and sums.dtype == torch.float32
+    for impl in ("xla", "pallas"):
+        jkeys, jsums, jcounts, jfound = jops.groupjoin_probe_agg(*j.values(), G,
+                                                                 col_sides=col_sides, impl=impl)
+        _eq(jkeys, keys)
+        _eq(jcounts, counts)
+        assert int(jfound) == int(found) == G
+        np.testing.assert_allclose(sums.numpy(), np.asarray(jsums), **SUM_TOL)
+
+
+@pytest.mark.parametrize("num_groups", [50, 400])
+def test_groupby_sorted_sum_matches_jax(num_groups):
+    keys, vals = _sorted_keys(3, 5000)
+    n_runs = np.unique(keys[keys >= 0]).shape[0]
+    for impl in ("pallas", "xla"):
+        jk, js, jc = jops.groupby_sorted_sum(jnp.asarray(keys), jnp.asarray(vals), num_groups,
+                                             impl)
+        k, s, c = tops.groupby_sorted_sum(_t(keys), _t(vals), num_groups)  # CPU: torch
+        _eq(jk, k)
+        assert int(jc) == int(c) == min(n_runs, num_groups)
+        np.testing.assert_allclose(s.numpy(), np.asarray(js), **SUM_TOL)
+
+
+def _runs(seed, num_groups=40):
+    """Run starts over fewer than 1000 rows: the first rows outside every
+    run (sentinel keys sort first), empty runs among the rest and at the
+    end."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, 40, num_groups)
+    lengths[rng.random(num_groups) < 0.2] = 0
+    lengths[-3:] = 0
+    starts = 17 + np.r_[0, np.cumsum(lengths)]
+    return _t(starts.astype(np.int32)), lengths
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.int64])
+def test_run_sums_match_numpy(dtype):
+    """Sums over each run in the column's dtype: integers exact (int32 sums
+    wrap as numpy's do), floats to SUM_TOL; empty runs give 0."""
+    starts, lengths = _runs(4)
+    rng = np.random.default_rng(5)
+    if dtype == np.float32:
+        vals = rng.normal(size=1000).astype(dtype)
+    else:
+        vals = rng.integers(1 << 28, 1 << 30, 1000).astype(dtype)
+    got = tops.RunSums(starts)(_t(vals))
+    s = starts.numpy()
+    want = np.array([vals[a:b].sum(dtype=dtype) for a, b in zip(s[:-1], s[1:])], dtype)
+    assert got.dtype == _t(vals).dtype and got.shape == (lengths.shape[0],)
+    if dtype == np.float32:
+        np.testing.assert_allclose(got.numpy(), want, **SUM_TOL)
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy()[lengths == 0] == 0).all()
+    for empty in (_t(np.zeros(1, np.int32)), _t(np.full(5, 17, np.int32))):
+        assert (tops.RunSums(empty)(_t(vals)) == 0).all()
+
+
+def test_run_sums_share_one_geometry(monkeypatch):
+    """The float scan's geometry (one host sync and one binary search) is
+    computed once for every column summed over the same runs, and not at
+    all for integer columns."""
+    calls = []
+    real = torch.searchsorted
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(torch, "searchsorted", spy)
+    starts, _ = _runs(6)
+    run_sums = tops.RunSums(starts)
+    rng = np.random.default_rng(7)
+    run_sums(_t(rng.integers(0, 9, 1000).astype(np.int32)))
+    assert not calls
+    cols = [_t(rng.normal(size=1000).astype(np.float32)) for _ in range(3)]
+    sums = [run_sums(c) for c in cols]
+    assert len(calls) == 1
+    for c, got in zip(cols, sums):
+        torch.testing.assert_close(got, tops.RunSums(starts)(c), rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
 # arm selection
 # ---------------------------------------------------------------------------
 _I32 = torch.zeros(4, dtype=torch.int32)
@@ -249,7 +492,11 @@ _BK = torch.full((2, 4), -1, dtype=torch.int32)
     (lambda: thj.phj_join(TTable({"k": _I32}), TTable({"k": _I32}), probe_impl="cuda"),
      "needs CUDA tensors"),
     (lambda: tops.clustered_gather(_I32, _I32, "pallas"), "unknown impl"),
-], ids=["partition_plan", "hash_probe", "clustered_gather", "phj_join", "unknown"])
+    (lambda: tops.groupjoin_probe_agg(_BK, None, _I32, _I32, None, _I32[:2], _I32[:2], 4,
+                                      col_sides=(), impl="cuda"),
+     "needs CUDA tensors"),
+], ids=["partition_plan", "hash_probe", "clustered_gather", "phj_join", "unknown",
+        "groupjoin_probe_agg"])
 def test_impl_selection_raises(call, match):
     """'cuda' on a CPU tensor raises instead of running the plain arm."""
     with pytest.raises(ValueError, match=match):
