@@ -30,12 +30,30 @@
    (e) the sort group-bys over the join output: strategy="sort" with the
        query's aggregates (equal to the numpy reference), and
        strategy="sort_pallas" with {s1: sum, r2: count}.
+   (f) the sort-merge join, SMJ-OM and SMJ-UM (one lower_bound launch
+       each), equal to each other and to the plain lower-bound arm row for
+       row, and to the numpy reference per key; a profiled warm SMJ-OM run;
+   (g) the radix sort plan (4 + 4 rank-pass launches per sort) on S's and
+       R's keys, equal to the stable sort exactly;
+   (h) the non-partitioned hash join (no kernel), equal to the numpy
+       reference per key, with no failed insertion.
 6. Holds each kernel against its plain PyTorch version on the card, at the
    shapes these paths give it (keys, layouts and counts exactly equal, float
    sums to a stated tolerance), and times the kernel, the plain version and
    the one PyTorch library call that computes the same function where there
    is one (median of CUDA-event timings), beside the least time the card
-   could take.
+   could take. (k) The global histogram is driven through its own entry
+   point (`ops.histogram`) first; its full-fan-out counts must equal the
+   join's partition plan's sizes.
+7. Frees J2 and drives two more paths, with counters as above:
+   (i) the m:n sort-merge join of the TPC-DS Q95 extract J5 at scale 1
+       (72,000,000 x 72,000,000 rows, keys uniform in [0, 18,000,000), int64
+       payloads), with out_size the exact match total from numpy's per-key
+       counts; per-key output counts and payload sums equal numpy's;
+   (j) join sequences over a star schema with J2's row counts (a 60,000,000
+       row fact table, four 15,000,000 row dimensions): PHJ-OM and SMJ-OM with
+       restore_order=True, equal to each other row for row and to numpy.
+Every phase prints its seconds.
 
 Prints one JSON line {"kernels": [...]} before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, before printing either,
@@ -63,17 +81,26 @@ AGGS = {"s1": "sum", "r1": "max", "r2": "count"}
 # 2 for the group-by (2^16 + 1, top partition as a tail class); one probe;
 # one gather per payload column
 EXPECTED_LAUNCHES = {"block_histograms": 8, "partition_ranks": 8, "hash_probe": 1,
-                     "clustered_gather": 4}
+                     "clustered_gather": 4, "lower_bound": 0, "histogram": 0}
 # the group-join: the same two plans as the join, one fused probe pass, no
 # gather and no group-by partition
 GJ_AGGS = {"s1": "sum", "r1": "sum", "r2": "count"}
 GJ_LAUNCHES = {"block_histograms": 6, "partition_ranks": 6, "hash_probe": 0,
-               "clustered_gather": 0, "probe_agg": 1, "segsum_partials": 0}
+               "clustered_gather": 0, "probe_agg": 1, "segsum_partials": 0,
+               "lower_bound": 0, "histogram": 0}
 # sort_pallas with a sum and a count: the hoisted count pass and one pass
 # for s1
 SP_AGGS = {"s1": "sum", "r2": "count"}
 SP_LAUNCHES = {"block_histograms": 0, "partition_ranks": 0, "hash_probe": 0,
-               "clustered_gather": 0, "probe_agg": 0, "segsum_partials": 2}
+               "clustered_gather": 0, "probe_agg": 0, "segsum_partials": 2,
+               "lower_bound": 0, "histogram": 0}
+# SMJ with pk_fk: one lower-bound sweep; the sort plans are stable sorts
+SMJ_LAUNCHES = dict.fromkeys(SP_LAUNCHES, 0) | {"lower_bound": 1}
+# the radix sort plan of int32 keys: four 8-bit rank passes
+RADIX_LAUNCHES = dict.fromkeys(SP_LAUNCHES, 0) | {"block_histograms": 4, "partition_ranks": 4}
+NO_LAUNCHES = dict.fromkeys(SP_LAUNCHES, 0)
+# J2's row counts for the star schema (benchmarks/joins.py: n_dim = n_fact / 4)
+STAR = dict(n_fact=60_000_000, n_dim=15_000_000, n_joins=4)
 # float32 sums of int64 payloads below 2^31 against exact int64 sums: each
 # value rounds by at most 2^-24 relative when it is converted, each add as
 # much again, so |got - exact| <= 2 * rows * 2^-24 * |exact| for the
@@ -94,6 +121,8 @@ KERNEL_SOURCES = {
     "probe_agg": ("src/repro_torch/csrc/probe_agg.cu", "src/repro/kernels/hash_probe.py:132"),
     "segsum_partials": ("src/repro_torch/csrc/segsum_partials.cu",
                         "src/repro/kernels/segsum.py:43"),
+    "lower_bound": ("src/repro_torch/csrc/lower_bound.cu", "src/repro/kernels/merge_join.py:43"),
+    "histogram": ("src/repro_torch/csrc/histogram.cu", "src/repro/kernels/histogram.py:34"),
 }
 
 
@@ -148,6 +177,18 @@ def slot_compares(torch, ref, gke):
     return int(torch.where(gke != -1, torch.where(rep == pos, pos, rep + 1), 0).sum())
 
 
+class PhaseClock:
+    """Prints the seconds each phase of the script took, and the total."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def done(self, name: str) -> None:
+        now = time.perf_counter()
+        log(f"phase {name}: {now - self.last:.3f} s (total {now - self.start:.3f} s)")
+        self.last = now
+
+
 def timed(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -186,16 +227,18 @@ def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from the repository")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import (group_aggregate, join, phj_groupjoin, phj_overflowed,
-                                  table_from_numpy, table_to_numpy)
+    from repro_torch.core import (group_aggregate, join, join_sequence, phj_groupjoin,
+                                  phj_overflowed, table_from_numpy, table_to_numpy)
     from repro_torch.core import groupby as gb
     from repro_torch.core import groupjoin as gj
     from repro_torch.core import hash_join as hj
     from repro_torch.core import primitives as prim
-    from repro_torch.data.relgen import generate_tpc
+    from repro_torch.data.relgen import _payload, generate_star, generate_tpc
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import gather as kgather
     from repro_torch.kernels import hash_probe as kprobe
+    from repro_torch.kernels import histogram as khist
+    from repro_torch.kernels import merge_join as kmj
     from repro_torch.kernels import radix_partition as krp
     from repro_torch.kernels import segsum as kseg
 
@@ -206,11 +249,13 @@ def main() -> None:
     log(smi[0] if smi else "nvidia-smi printed nothing")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
+    clock = PhaseClock()
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
     _build.build_all()
     log(f"build: {time.perf_counter() - t0:.3f} s for {len(_build.SOURCES)} kernels "
         f"({' '.join(_build.NVCC_FLAGS)}) into {_build.BUILD_DIR.relative_to(ROOT)}")
+    clock.done("1 build")
 
     # -- 2. data ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -226,6 +271,7 @@ def main() -> None:
     over, p_bits = phj_overflowed(R)
     check(not over, "a build partition overflows its 256-row block")
     log(f"phj_overflowed: False at {p_bits} partition bits")
+    clock.done("2 data")
 
     def query(phases=None, **arms):
         T, cnt = join(R, S, algorithm="phj", pattern="gftr", phases=phases, **arms)
@@ -252,7 +298,8 @@ def main() -> None:
                                  "peak_device_bytes": peak, "join_rows": int(cnt),
                                  "groups": int(gcnt), "launches": launches}}))
     for name, want in EXPECTED_LAUNCHES.items():
-        check(launches[name] > 0, f"kernel {name} was not launched on the main path")
+        check(launches[name] > 0 or want == 0, f"kernel {name} was not launched on the main "
+              "path")
         check(launches[name] == want, f"kernel {name}: {launches[name]} launches, "
               f"expected {want}")
     check(int(cnt) == n_s, f"join rows {int(cnt)} != {n_s} (match ratio 1.0)")
@@ -278,6 +325,7 @@ def main() -> None:
 
     walls = sorted(timed(torch, query)[1] for _ in range(3))
     log(json.dumps({"j2_profile": {"query_s_median_of_3": walls[1], **profile_run(query)}}))
+    clock.done("3 main path")
 
     # -- 4a. every arm forced to plain PyTorch, on the card -----------------
     os.environ[ops.PARTITION_PLAN_ENV] = "torch"
@@ -296,7 +344,7 @@ def main() -> None:
                   "all-torch run")
     log(f"(a) all-torch arms on the card: join and group-by equal row for row "
         f"({torch_s:.3f} s)")
-    del T0, G0
+    del T0, G0, a, b
 
     # -- 4b. numpy reference ------------------------------------------------
     t0 = time.perf_counter()
@@ -305,17 +353,24 @@ def main() -> None:
     rows_ref, s1_ref, _ = per_key(Sn["k"], n_r, Sn["s1"], Sn["s1"])
     present = rows_ref > 0
     r1_ref = np.where(present, r1_of_key, np.iinfo(np.int64).min)
-    Th = table_to_numpy(T.head(int(cnt)))
-    check(Th["k"].min() >= 0 and Th["k"].max() < n_r, "join keys out of range")
-    rows_t, s1_t, r1_t = per_key(Th["k"], n_r, Th["s1"], Th["r1"])
-    check(np.array_equal(rows_t, rows_ref), "join: rows per key differ from numpy")
-    check(np.array_equal(s1_t, s1_ref), "join: sum of s1 per key differs from numpy")
-    check(np.array_equal(r1_t, r1_ref), "join: max of r1 per key differs from numpy")
+    payload_of_key = {}
     for c in ("r2", "r3"):
-        want = np.empty(n_r, Rn[c].dtype)
-        want[Rn["k"]] = Rn[c]
-        check(np.array_equal(Th[c], want[Th["k"]]), f"join: {c} is not its key's payload")
-    del Th
+        payload_of_key[c] = np.empty(n_r, Rn[c].dtype)
+        payload_of_key[c][Rn["k"]] = Rn[c]
+
+    def check_join(J, count, what):
+        """A join of J2 against the numpy reference: its valid rows per key,
+        their sums of s1 and maxima of r1, and r2, r3 of each row's key."""
+        Th = table_to_numpy(J.head(int(count)))
+        check(Th["k"].min() >= 0 and Th["k"].max() < n_r, f"{what}: join keys out of range")
+        rows_t, s1_t, r1_t = per_key(Th["k"], n_r, Th["s1"], Th["r1"])
+        check(np.array_equal(rows_t, rows_ref), f"{what}: rows per key differ from numpy")
+        check(np.array_equal(s1_t, s1_ref), f"{what}: sum of s1 per key differs from numpy")
+        check(np.array_equal(r1_t, r1_ref), f"{what}: max of r1 per key differs from numpy")
+        for c, want in payload_of_key.items():
+            check(np.array_equal(Th[c], want[Th["k"]]), f"{what}: {c} is not its key's payload")
+
+    check_join(T, cnt, "join")
     Gh = table_to_numpy(G.head(int(gcnt)))
     check(int(gcnt) == int(present.sum()), f"groups {int(gcnt)} != {int(present.sum())}")
     order = np.argsort(Gh["k"], kind="stable")
@@ -330,11 +385,12 @@ def main() -> None:
     log(f"(b) numpy int64 reference: join and group-by agree per key "
         f"({time.perf_counter() - t0:.3f} s)")
     log(f"(c) launches on the main path: {json.dumps(launches)}")
+    clock.done("4 checks")
 
     def run_path(name, fn, expected):
         """One more path: cold run, then counters and peak reset, a warm run
         read at once, two more warm runs; returns (out, times, launches)."""
-        _, cold = timed(torch, fn)
+        cold = timed(torch, fn)[1]
         torch.cuda.synchronize()
         live = torch.cuda.memory_allocated()
         ops.reset_launch_counts()
@@ -387,6 +443,7 @@ def main() -> None:
         f"2 * rows * 2^-24 relative, max relative error {json.dumps(gj_err)}), to the torch "
         f"arm with the sort strategy ({gt_s:.3f} s), and bit-identical on a second run")
     del Gj, Gt, Gjh
+    clock.done("5d group-join")
 
     # -- 5e. the sort group-bys over the join output ------------------------
     (Gs, gsc), _ = run_path("j2_groupby_sort", lambda: group_aggregate(
@@ -409,8 +466,73 @@ def main() -> None:
     log(f"(e) sort group-by equal to numpy (int64); sort_pallas keys and counts equal, "
         f"float32 sums within 2 * rows * 2^-24 relative (max {sp_err})")
     del Gp, Gph
+    clock.done("5e sort group-bys")
+
+    # -- 5f. the sort-merge join: SMJ-OM and SMJ-UM -------------------------
+    def smj(pattern="gftr", **kw):
+        return join(R, S, algorithm="smj", pattern=pattern, **kw)
+
+    (Tm, cm), smj_info = run_path("j2_smj_om", smj, SMJ_LAUNCHES)
+    (Tu, cu), smj_um_info = run_path("j2_smj_um", lambda: smj("gfur"), SMJ_LAUNCHES)
+    ops.reset_launch_counts()
+    (Tt, ct), smj_torch_s = timed(torch, lambda: smj(find_impl="torch"))
+    check(sum(ops.launch_counts().values()) == 0, "find_impl='torch' launched a kernel")
+    check(int(cm) == int(cu) == int(ct) == n_s, f"SMJ rows {int(cm)}, {int(cu)}, {int(ct)} != "
+          f"{n_s} (match ratio 1.0)")
+    for other, what in ((Tu, "SMJ-UM"), (Tt, "SMJ-OM with the plain lower bound")):
+        check(other.column_names == Tm.column_names, f"{what}: columns differ")
+        for name in Tm.column_names:
+            check(torch.equal(Tm[name], other[name]), f"SMJ-OM column {name} differs from {what}")
+    del Tu, Tt, other
+    check_join(Tm, cm, "SMJ-OM")
+    del Tm
+    smj_phases = {"om": {}, "um": {}}
+    smj(phases=smj_phases["om"])
+    smj("gfur", phases=smj_phases["um"])
+    log(json.dumps({"j2_smj_phases_s": smj_phases}))
+    log(json.dumps({"j2_smj_om_profile": profile_run(smj)}))
+    log(f"(f) SMJ-OM and SMJ-UM: {n_s} rows, equal to each other and to the plain lower-bound "
+        f"arm ({smj_torch_s:.3f} s) row for row, and to numpy per key")
+    clock.done("5f sort-merge join")
+
+    # -- 5g. the radix sort plan against the stable sort --------------------
+    for side, keys in (("S", S["k"]), ("R", R["k"])):
+        (rk, rperm), r_info = run_path(f"j2_radix_sort_plan_{side}",
+                                       lambda k=keys: krp.sort_plan_radix(k), RADIX_LAUNCHES)
+        (tk_, tperm), t_info = run_path(f"j2_stable_sort_plan_{side}",
+                                        lambda k=keys: prim.plan_sort_permutation(k), NO_LAUNCHES)
+        check(torch.equal(rk, tk_) and torch.equal(rperm, tperm),
+              f"radix sort plan of {side}'s keys differs from the stable sort")
+        log(f"(g) radix sort plan of {side}'s {keys.shape[0]} keys equal to the stable sort: "
+            f"{r_info['warm_s_median_of_3']:.6f} s against {t_info['warm_s_median_of_3']:.6f} s")
+        del rk, rperm, tk_, tperm, keys
+    log(json.dumps({"j2_radix_sort_plan_S_profile": profile_run(
+        lambda: krp.sort_plan_radix(S["k"]))}))
+    clock.done("5g radix sort plan")
+
+    # -- 5h. the non-partitioned hash join, beside PHJ-OM and SMJ-OM --------
+    phj_launches = dict(NO_LAUNCHES, block_histograms=6, partition_ranks=6, hash_probe=1,
+                        clustered_gather=4)
+    (_, _), phj_info = run_path("j2_phj_om", lambda: join(R, S, algorithm="phj"), phj_launches)
+    nphj_stats = {}
+    (Tn, cn), nphj_info = run_path(
+        "j2_nphj", lambda: join(R, S, algorithm="nphj", stats=nphj_stats), NO_LAUNCHES)
+    check(int(cn) == n_s, f"NPHJ rows {int(cn)} != {n_s}")
+    check_join(Tn, cn, "NPHJ")
+    del Tn
+    log(json.dumps({"j2_nphj_profile": profile_run(lambda: join(R, S, algorithm="nphj"))}))
+    failed = int(nphj_stats["failed"])  # of the last timed run
+    check(failed == 0, f"NPHJ: {failed} build keys found no slot")
+    log(f"(h) NPHJ equal to numpy per key, 0 failed insertions into "
+        f"{nphj_stats['table_size']} slots; joins "
+        f"warm (medians of 3): PHJ-OM {phj_info['warm_s_median_of_3']:.6f} s, SMJ-OM "
+        f"{smj_info['warm_s_median_of_3']:.6f} s, SMJ-UM "
+        f"{smj_um_info['warm_s_median_of_3']:.6f} s, NPHJ "
+        f"{nphj_info['warm_s_median_of_3']:.6f} s")
+    clock.done("5h non-partitioned hash join")
     path_launches = dict(launches, probe_agg=gj_info["launches"]["probe_agg"],
-                         segsum_partials=sp_info["launches"]["segsum_partials"])
+                         segsum_partials=sp_info["launches"]["segsum_partials"],
+                         lower_bound=smj_info["launches"]["lower_bound"])
     tk = T["k"]
     ts1 = T["s1"]
     del T, G
@@ -575,6 +697,137 @@ def main() -> None:
            lambda: torch.segment_reduce(sv, "sum", lengths=lengths, unsafe=True),
            n_s * (4 + 4) + seg_live * (4 + 4 + 4),
            library="torch.segment_reduce over the tile-local run lengths (sums only)")
+    del sk, sv, seg_out, seg_plain, lengths
+
+    # -- 6k. the merge lower bound and the global histogram -------------------
+    # SMJ-OM's sweep: S's sorted keys against R's sorted keys
+    kr_sorted, ks_sorted = torch.sort(R["k"]).values, torch.sort(S["k"]).values
+    record("lower_bound", [kmj.lower_bound(kr_sorted, ks_sorted)],
+           [ref.lower_bound(kr_sorted, ks_sorted)], lambda: kmj.lower_bound(kr_sorted, ks_sorted),
+           lambda: ref.lower_bound(kr_sorted, ks_sorted),
+           lambda: torch.searchsorted(kr_sorted, ks_sorted), 4 * n_s + 4 * n_r + 4 * n_s,
+           library="torch.searchsorted (int64 bounds; the plain version is the same call with "
+                   "int32 bounds)")
+    # tiles wider than the shared window: 100,000 sorted probe keys over R's
+    # range (about 150,000 build keys per tile); and 8-byte keys
+    gen = torch.Generator(device=dev).manual_seed(0)
+    wide = torch.sort(torch.randint(-1, n_r + 5, (100_000,), generator=gen, device=dev,
+                                    dtype=torch.int32)).values
+    kr64, ks64 = kr_sorted.long() << 33, ks_sorted.long() << 33
+    for what, b, p in (("wide spans", kr_sorted, wide), ("int64 keys", kr64, ks64)):
+        check(torch.equal(kmj.lower_bound(b, p), ref.lower_bound(b, p)),
+              f"lower_bound ({what}) differs from its plain version")
+        log(f"kernel lower_bound, {what} ({p.shape[0]} probe keys): exact; "
+            f"{cuda_ms(torch, lambda: kmj.lower_bound(b, p)):.6f} ms against "
+            f"torch.searchsorted {cuda_ms(torch, lambda: torch.searchsorted(b, p)):.6f} ms")
+    del kr_sorted, ks_sorted, wide, kr64, ks64, b, p
+
+    # the histogram's own entry point as a path: S's first-pass digits and the
+    # join's full digits, whose counts are the partition plan's sizes
+    pd = (dig_s & 255).contiguous()
+    ops.reset_launch_counts()
+    h256 = ops.histogram(pd, 256)
+    hfull = ops.histogram(dig_s, P + 1)
+    path_launches["histogram"] = ops.launch_counts()["histogram"]
+    check(path_launches["histogram"] == 2, f"histogram launched {path_launches['histogram']} "
+          "times, expected 2")
+    check(torch.equal(hfull, sz_s), "histogram of the join's digits differs from the partition "
+          "plan's sizes")
+    record("histogram", [h256], [ref.histogram(pd, 256)], lambda: khist.histogram(pd, 256),
+           lambda: ref.histogram(pd, 256), lambda: torch.bincount(pd, minlength=256),
+           4 * n_s + 4 * 256, library="torch.bincount (int64 counts)")
+    check(torch.equal(hfull, ref.histogram(dig_s, P + 1)), "histogram: the full fan-out differs "
+          "from its plain version")
+    log(f"kernel histogram, {P + 1} bins (device-memory counts): exact, equal to the plan's "
+        f"sizes; {cuda_ms(torch, lambda: khist.histogram(dig_s, P + 1)):.6f} ms against "
+        f"torch.bincount {cuda_ms(torch, lambda: torch.bincount(dig_s, minlength=P + 1)):.6f} ms, "
+        f"bound {(4 * n_s + 4 * (P + 1)) / HBM_BYTES_PER_S * 1e3:.6f} ms")
+    clock.done("6 kernels")
+
+    # -- 7. free J2 ---------------------------------------------------------
+    del R, S, dig_s, pd, h256, hfull, perm_r, off_r, sz_r, perm_s, off_s, sz_s, kr, ks, bkeys
+    del offp, dig_r, pad, _
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"J2 freed: {torch.cuda.memory_allocated()} bytes still allocated")
+
+    # -- 7i. the m:n sort-merge join of J5 at scale 1 -------------------------
+    R5n, S5n, mode5 = generate_tpc("J5", scale=1, payload_bytes=8, seed=0)
+    check(mode5 == "mn", f"J5 mode {mode5}")
+    n5 = R5n["k"].shape[0]
+    n_keys = n5 // 4  # keys uniform in [0, n_r // 4)
+    cR = np.bincount(R5n["k"], minlength=n_keys)
+    cS = np.bincount(S5n["k"], minlength=n_keys)
+    # per-key payload sums: float64 holds them exactly below 2^53
+    sum_r = np.bincount(R5n["k"], weights=R5n["r1"], minlength=n_keys)
+    sum_s = np.bincount(S5n["k"], weights=S5n["s1"], minlength=n_keys)
+    check(max(sum_r.max(), sum_s.max()) < 2 ** 53, "J5 payload sums past float64's exact range")
+    total = int((cR * cS).sum())
+    want5 = {"rows": cR * cS, "r1": sum_r.astype(np.int64) * cS, "s1": sum_s.astype(np.int64) * cR}
+    R5, S5 = table_from_numpy(R5n), table_from_numpy(S5n)
+    del R5n, S5n
+    log(f"data: J5 R {n5} rows {R5!r}, S {S5.num_rows} rows; {n_keys} keys, {total} matches "
+        f"(numpy per-key counts)")
+
+    def smj_mn(phases=None):
+        return join(R5, S5, algorithm="smj", pattern="gftr", mode="mn", out_size=total,
+                    phases=phases)
+
+    (T5, c5), j5_info = run_path("j5_smj_mn", smj_mn, NO_LAUNCHES)
+    check(int(c5) == total, f"J5: {int(c5)} rows != {total}")
+    k5 = T5["k"].long()
+    check(bool((k5 >= 0).all()) and bool((k5 < n_keys).all()), "J5: join keys out of range")
+    got5 = {"rows": torch.bincount(k5, minlength=n_keys)}
+    for c in ("r1", "s1"):
+        got5[c] = torch.zeros(n_keys, dtype=torch.int64, device=k5.device).index_add_(
+            0, k5, T5[c])
+        check(T5[c].dtype == torch.int64, f"J5: {c} lost the int64 payload type")
+    for c, want in want5.items():
+        check(np.array_equal(got5[c].cpu().numpy(), want), f"J5: {c} per key differs from numpy")
+    del T5, k5, got5
+    j5_phases = {}
+    smj_mn(phases=j5_phases)
+    log(json.dumps({"j5_smj_mn_phases_s": j5_phases}))
+    log(f"(i) J5 m:n SMJ-OM: {total} rows; rows, sums of r1 and of s1 per key equal to numpy "
+        f"(cR * cS, sum(r1) * cS, sum(s1) * cR in int64)")
+    del R5, S5
+    torch.cuda.empty_cache()
+    clock.done("7i J5 m:n sort-merge join")
+
+    # -- 7j. join sequences over a star schema -------------------------------
+    fact_n, dims_n, fks, dks = generate_star(**STAR)
+    fact = table_from_numpy(fact_n)
+    dims = [table_from_numpy(d) for d in dims_n]
+    log(f"data: star fact {fact!r}, {len(dims)} dimensions {dims[0]!r}")
+    n_j = STAR["n_joins"]
+    seq_launches = {
+        # per join: three plan passes per side, one probe, a gather for the
+        # dimension's payload and for each probe-side column
+        "phj": dict(NO_LAUNCHES, block_histograms=6 * n_j, partition_ranks=6 * n_j,
+                    hash_probe=n_j, clustered_gather=sum(i + 2 for i in range(n_j))),
+        "smj": dict(NO_LAUNCHES, lower_bound=n_j),
+    }
+    seqs = {}
+    for alg in ("phj", "smj"):
+        (seqs[alg], sc), _ = run_path(
+            f"star_{alg}_om", lambda a=alg: join_sequence(fact, dims, fk_cols=fks, dim_keys=dks,
+                                                          algorithm=a, pattern="gftr",
+                                                          restore_order=True),
+            seq_launches[alg])
+        check(int(sc) == STAR["n_fact"], f"star {alg}: {int(sc)} rows != {STAR['n_fact']}")
+    a, b = seqs["phj"], seqs["smj"]
+    check(a.column_names == b.column_names and all(torch.equal(a[c], b[c])
+                                                    for c in a.column_names),
+          "join sequences: PHJ-OM and SMJ-OM differ")
+    check(np.array_equal(a["payload"].cpu().numpy(), fact_n["payload"]),
+          "join sequence: rows are not in fact order")
+    for i, fk in enumerate(fks):
+        check(np.array_equal(a[f"p{i}_0"].cpu().numpy(), _payload(fact_n[fk], 7 * i, np.int32)),
+              f"join sequence: p{i}_0 is not its foreign key's payload")
+    log(f"(j) join sequences of {n_j} joins over {STAR['n_fact']} fact rows: PHJ-OM and SMJ-OM "
+        f"equal row for row and to numpy; columns {list(a.column_names)}")
+    del a, b, seqs, fact, dims
+    clock.done("7j join sequences")
 
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -24,8 +24,8 @@ import torch
 
 from ..kernels import ops as kops
 from . import primitives as prim
-from .hash_join import _nonempty, hash32
-from .table import KEY_SENTINEL, Table
+from .hash_join import hash32
+from .table import KEY_SENTINEL, Table, nonempty
 
 AGG_OPS = ("sum", "count", "min", "max", "mean")
 STRATEGIES = ("sort", "partition", "partition_hash", "scatter", "sort_pallas")
@@ -80,7 +80,7 @@ def groupby_sort(table: Table, *, key: str = "k", aggs: dict[str, str], num_grou
     sums are differences of a prefix sum and wrap as the input type does
     (`ops.RunSums`, one for every column)."""
     _check_aggs(aggs)
-    table = _nonempty(table, key)
+    table = nonempty(table, key)
     sk, perm = prim.plan_sort_permutation(table[key])
     valid, rid, starts, n_found = kops.sorted_runs(sk, num_groups)
     run_sums = kops.RunSums(starts)
@@ -111,7 +111,7 @@ def groupby_sort_pallas(table: Table, *, key: str = "k", aggs: dict[str, str],
     column, so it runs at most once, and only when a mean or count needs
     it."""
     _check_aggs(aggs, ("sum", "mean", "count"))
-    table = _nonempty(table, key)
+    table = nonempty(table, key)
     sk, perm = prim.plan_sort_permutation(table[key])
     out = {}
     count = gc = None
@@ -203,7 +203,7 @@ def groupby_partition(
     the fan-out makes that negligible for the high-cardinality,
     low-multiplicity inputs this strategy is for."""
     _check_aggs(aggs)
-    table = _nonempty(table, key)
+    table = nonempty(table, key)
     keys = table[key]
     dev = keys.device
     n = keys.shape[0]

@@ -32,9 +32,9 @@ from ..kernels import ops as kops
 from ..kernels.common import resolve_impl
 from . import primitives as prim
 from .groupby import AGG_OPS, group_aggregate
-from .hash_join import (BUILD_BLOCK, _digits, _nonempty, blocked_partitions, build_blocks,
+from .hash_join import (BUILD_BLOCK, _digits, blocked_partitions, build_blocks,
                         choose_partition_bits, phj_overflowed)
-from .table import KEY_SENTINEL, Table
+from .table import KEY_SENTINEL, Table, nonempty
 
 # aggregates the fused kernel computes (per-slot sums and counts)
 FUSED_OPS = ("sum", "mean", "count")
@@ -93,8 +93,8 @@ def phj_groupjoin(
         if S[group_key].dtype.is_floating_point:
             raise ValueError("groupjoin probe_impl='cuda' needs integer group keys")
 
-    R = _nonempty(R, key)
-    S = _nonempty(S, key)
+    R = nonempty(R, key)
+    S = nonempty(S, key)
     p_bits = (partition_bits if partition_bits is not None
               else choose_partition_bits(R.num_rows, build_block))
     P = 1 << p_bits

@@ -11,14 +11,12 @@ pk_fk mode only; the m:n mode of the reference is still to port.
 """
 from __future__ import annotations
 
-import contextlib
-import time
-
 import torch
 
 from ..kernels import ops as kops
 from . import primitives as prim
-from .table import KEY_SENTINEL, Table
+from .phases import phase
+from .table import KEY_SENTINEL, Table, nonempty
 
 _U32 = 0xFFFFFFFF
 
@@ -64,33 +62,6 @@ def _digits(keys: torch.Tensor, p_bits: int, hash_keys: bool) -> torch.Tensor:
     h = hash32(keys) if hash_keys else keys.to(torch.int64) & _U32
     d = (h & ((1 << p_bits) - 1)).to(torch.int32)
     return torch.where(keys == KEY_SENTINEL, 1 << p_bits, d)
-
-
-def _nonempty(table: Table, key: str) -> Table:
-    """Substitute one all-sentinel row for a zero-row relation: the sentinel
-    key is dropped by every probe, build and aggregate, so results equal the
-    true empty input while every intermediate keeps a non-empty shape."""
-    if table.num_rows:
-        return table
-    return Table({n: torch.full((1,), KEY_SENTINEL if n == key else 0, dtype=c.dtype,
-                                device=c.device)
-                  for n, c in table.columns.items()})
-
-
-@contextlib.contextmanager
-def phase(times: dict | None, name: str, device: torch.device):
-    """Add the wall time of the enclosed phase to times[name], synchronising
-    the card at both ends; does nothing when times is None."""
-    if times is None:
-        yield
-        return
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    times[name] = times.get(name, 0.0) + time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------
@@ -148,8 +119,8 @@ def phj_join(
     if pattern not in ("gftr", "gfur"):
         raise ValueError(f"unknown pattern {pattern!r}")
     out_size = max(S.num_rows if out_size is None else out_size, 1)
-    R = _nonempty(R, key)
-    S = _nonempty(S, key)
+    R = nonempty(R, key)
+    S = nonempty(S, key)
     dev = S.device
     r_pay = [n for n in R.column_names if n != key]
     s_pay = [n for n in S.column_names if n != key]

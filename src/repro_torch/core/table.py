@@ -19,7 +19,8 @@ import torch
 
 from ..kernels.common import KEY_SENTINEL
 
-__all__ = ["KEY_SENTINEL", "Table", "concat_tables", "table_from_numpy", "table_to_numpy"]
+__all__ = ["KEY_SENTINEL", "Table", "concat_tables", "nonempty", "table_from_numpy",
+           "table_to_numpy"]
 
 
 @dataclasses.dataclass
@@ -108,3 +109,14 @@ def table_to_numpy(table: Table) -> dict[str, np.ndarray]:
 def concat_tables(tables: list[Table]) -> Table:
     names = tables[0].column_names
     return Table({n: torch.cat([t[n] for t in tables]) for n in names})
+
+
+def nonempty(table: Table, key: str) -> Table:
+    """Substitute one all-sentinel row for a zero-row relation: the sentinel
+    key is dropped by every probe, build and aggregate, so results equal the
+    true empty input while every intermediate keeps a non-empty shape."""
+    if table.num_rows:
+        return table
+    return Table({n: torch.full((1,), KEY_SENTINEL if n == key else 0, dtype=c.dtype,
+                                device=c.device)
+                  for n, c in table.columns.items()})

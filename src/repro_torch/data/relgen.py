@@ -4,7 +4,8 @@ Generates (R, S) pairs as `{name: np.ndarray}` dicts with the paper's knobs:
 sizes, payload column counts, match ratio (a fraction of R's primary keys
 replaced by out-of-domain values, §5.2.3), foreign-key Zipf skew (§5.2.4),
 4- or 8-byte keys and payloads (§5.2.5), and the TPC-H/DS-shaped extracts of
-Table 6. Keys are 0..|R|-1 shuffled; payloads are derived from the key, so a
+Table 6, and star schemas for join sequences (§5.2.7). Keys are 0..|R|-1
+shuffled; payloads are derived from the key, so a
 check can recompute them. For the same seed the arrays equal the JAX
 package's generator's. `table_from_numpy` puts them on a device.
 """
@@ -58,6 +59,28 @@ def generate(w: JoinWorkload) -> tuple[dict, dict]:
     for j in range(w.s_payloads):
         S[f"s{j+1}"] = _payload(skeys, 100 + j, pdt)
     return R, S
+
+
+def generate_star(n_fact: int, n_dim: int, n_joins: int, *, payloads_per_dim: int = 1,
+                  seed: int = 0):
+    """A fact table with n_joins foreign keys and n_joins dimension tables
+    for join sequences (Fig. 16): (fact, dims, fk_cols, dim_keys), tables as
+    `{name: np.ndarray}` dicts. fact["payload"] is the row number; dimension
+    i has key k{i} (a permutation of [0, n_dim)) and payloads p{i}_{j} =
+    `_payload(k{i}, 7 i + j)`."""
+    rng = np.random.default_rng(seed)
+    fact = {"payload": np.arange(n_fact, dtype=np.int32)}
+    dims, fks, dks = [], [], []
+    for i in range(n_joins):
+        fact[f"fk{i}"] = rng.integers(0, n_dim, n_fact).astype(np.int32)
+        dkeys = rng.permutation(n_dim).astype(np.int32)
+        cols = {f"k{i}": dkeys}
+        for j in range(payloads_per_dim):
+            cols[f"p{i}_{j}"] = _payload(dkeys, i * 7 + j, np.int32)
+        dims.append(cols)
+        fks.append(f"fk{i}")
+        dks.append(f"k{i}")
+    return fact, dims, fks, dks
 
 
 # TPC-H/DS extracts (Table 6): (query, n_r, n_s, r_key_cols, r_nonkey,

@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("block_histograms", "partition_ranks", "hash_probe", "clustered_gather", "probe_agg",
-           "segsum_partials")
+           "segsum_partials", "lower_bound", "histogram")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +37,8 @@ SIGNATURES = {
     "probe_agg": {"probe_agg": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
                                 _P, _P, _P, _P)},
     "segsum_partials": {"segsum_partials": (_P, _P, _L, _I, _I, _P, _P, _P, _P)},
+    "lower_bound": {"lower_bound": (_P, _I, _P, _L, _I, _P, _P)},
+    "histogram": {"histogram": (_P, _L, _I, _P, _P)},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -23,7 +23,7 @@ IMPLS = ("torch", "cuda")
 
 # One launch counter per hand-written kernel.
 KERNELS = ("block_histograms", "partition_ranks", "hash_probe", "clustered_gather",
-           "probe_agg", "segsum_partials")
+           "probe_agg", "segsum_partials", "lower_bound", "histogram")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 

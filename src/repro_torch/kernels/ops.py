@@ -1,9 +1,9 @@
 """Dispatch between the hand-written kernels and their plain arms.
 
-The partition plan, the hash probe and the gather take `impl` in
-{"torch", "cuda"} or None. None resolves by the tensor's device: a CUDA
-tensor gets the kernel, a CPU tensor the plain arm; "cuda" on a CPU tensor
-raises (`common.resolve_impl`). The group-join's probe-aggregate and the
+The partition plan, the hash probe, the gather, the merge lower bound and
+the histogram take `impl` in {"torch", "cuda"} or None. None resolves by
+the tensor's device: a CUDA tensor gets the kernel, a CPU tensor the plain
+arm; "cuda" on a CPU tensor raises (`common.resolve_impl`). The group-join's probe-aggregate and the
 sorted group sums have one arm, the kernel wrapper, which runs the
 kernel's plain version for CPU tensors. A kernel that fails to build or
 launch raises: no arm catches it and carries on.
@@ -15,6 +15,8 @@ import os
 import torch
 
 from . import gather as _gather
+from . import histogram as _histogram
+from . import merge_join as _merge_join
 from . import ref
 from . import segsum as _segsum
 from .common import KERNELS, KEY_SENTINEL, LAUNCHES, ceil_div, resolve_impl
@@ -48,6 +50,18 @@ def reset_launch_counts() -> None:
 
 
 # ---------------------------------------------------------------------------
+# histogram
+# ---------------------------------------------------------------------------
+def histogram(digits: torch.Tensor, num_bins: int, impl: str | None = None) -> torch.Tensor:
+    """(num_bins,) int32 counts of int32 digits; digits < 0 or >= num_bins
+    count nowhere. impl='cuda': the histogram kernel; 'torch': its plain
+    version (a bincount)."""
+    if resolve_impl(impl, digits) == "cuda":
+        return _histogram.histogram(digits, num_bins)
+    return ref.histogram(digits, num_bins)
+
+
+# ---------------------------------------------------------------------------
 # partition planning
 # ---------------------------------------------------------------------------
 def partition_plan(digits: torch.Tensor, num_partitions: int, *, carry=(),
@@ -76,8 +90,9 @@ def _partition_plan_torch(digits, num_partitions, carry):
 
 def sort_plan(keys: torch.Tensor):
     """Stable sort plan: (sorted_keys, perm int32), one stable torch.sort
-    (the counterpart of the reference's 'xla' arm; its sort-free 'radix'
-    arm is not ported yet)."""
+    (the counterpart of the reference's 'xla' arm). The sort-free rank-pass
+    plan of int32 keys is `radix_partition.sort_plan_radix`; it gives the
+    same tensors."""
     sk, perm = torch.sort(keys, stable=True)
     return sk, perm.to(torch.int32)
 
@@ -89,6 +104,19 @@ def apply_partition(dest: torch.Tensor, *arrays: torch.Tensor):
     inv = torch.zeros(n, dtype=torch.int32, device=dest.device)
     inv[dest.clamp(0, max(n - 1, 0))] = torch.arange(n, dtype=torch.int32, device=dest.device)
     return tuple(a[inv] for a in arrays)
+
+
+# ---------------------------------------------------------------------------
+# merge lower bound
+# ---------------------------------------------------------------------------
+def merge_lower_bound(build_sorted: torch.Tensor, probe_sorted: torch.Tensor,
+                      impl: str | None = None) -> torch.Tensor:
+    """Lower bound of each sorted probe key in the sorted build keys, int32
+    in [0, n_build]. impl='cuda': the lower_bound kernel, right for any span
+    (no span check, no fallback); 'torch': its plain version (searchsorted)."""
+    if resolve_impl(impl, probe_sorted, build_sorted) == "cuda":
+        return _merge_join.lower_bound(build_sorted, probe_sorted)
+    return ref.lower_bound(build_sorted, probe_sorted)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,7 @@ the order matters and atomics only where it does not:
 permutation: pass k ranks bits [8k, 8k+8) of the digit over the order left
 by pass k-1, and stability makes the composition equal the single stable
 partition on all bits. No comparison sort anywhere, so the plan is linear
-in n.
+in n. `sort_plan_radix` composes the same passes over whole int32 keys.
 
 For a CPU tensor each pass runs the kernels' plain versions (`ref`), so the
 composition itself is tested without a card.
@@ -175,3 +175,21 @@ def partition_plan(digits: torch.Tensor, num_partitions: int, *, carry=()):
                                                   device=digits.device))
     carried = tuple(c[perm] for c in carry)
     return perm, carried, offsets, sizes
+
+
+def sort_plan_radix(keys: torch.Tensor):
+    """Sort-free stable sort plan over int32 keys: four 8-bit LSD rank
+    passes over the sign-biased 32-bit pattern (the sign bit flipped, so
+    that unsigned digit order is signed key order). Returns (sorted_keys,
+    perm int32), equal to a stable sort's."""
+    if keys.dtype != torch.int32:
+        raise TypeError(f"the radix sort plan takes int32 keys, got {keys.dtype}")
+    u = keys ^ torch.iinfo(torch.int32).min
+
+    def extract(perm, bit, bits):
+        cur = u if bit == 0 else u[perm]
+        # the mask drops the sign bits an arithmetic shift brings in
+        return (cur >> bit) & ((1 << bits) - 1)
+
+    perm = _compose_lsd(extract, keys.shape[0], 32, PASS_BITS, None, keys.device)
+    return keys[perm], perm

@@ -24,6 +24,15 @@ def block_histograms(digits: torch.Tensor, num_bins: int, tile: int) -> torch.Te
     return counts[: num_tiles * num_bins].to(torch.int32).reshape(num_tiles, num_bins)
 
 
+def histogram(digits: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """(num_bins,) int32 counts of the digits in [0, num_bins); digits < 0
+    (pads) and >= num_bins count nowhere, as in the kernel."""
+    valid = (digits >= 0) & (digits < num_bins)
+    counts = torch.bincount(torch.where(valid, digits, num_bins).to(torch.int64),
+                            minlength=num_bins + 1)
+    return counts[:num_bins].to(torch.int32)
+
+
 def partition_ranks(digits: torch.Tensor, num_bins: int) -> torch.Tensor:
     """Stable-partition destination per element, -1 for pad digits: the
     inverse of the stable sort permutation of the digits. Pads sort behind
@@ -34,6 +43,16 @@ def partition_ranks(digits: torch.Tensor, num_bins: int) -> torch.Tensor:
     dest = torch.empty(n, dtype=torch.int32, device=digits.device)
     dest[order] = torch.arange(n, dtype=torch.int32, device=digits.device)
     return torch.where(valid, dest, -1)
+
+
+def lower_bound(build_sorted: torch.Tensor, probe: torch.Tensor) -> torch.Tensor:
+    """#{i : build_sorted[i] < probe[j]} per probe key, int32."""
+    return torch.searchsorted(build_sorted, probe, out_int32=True)
+
+
+def upper_bound(build_sorted: torch.Tensor, probe: torch.Tensor) -> torch.Tensor:
+    """#{i : build_sorted[i] <= probe[j]} per probe key, int32."""
+    return torch.searchsorted(build_sorted, probe, right=True, out_int32=True)
 
 
 def hash_probe_blocks(bkeys: torch.Tensor, off_r: torch.Tensor, probe_keys: torch.Tensor,

@@ -264,13 +264,11 @@ def test_relgen_knobs_match_jax():
 
 
 @pytest.mark.parametrize("call", [
-    lambda R: T.join(R, R, algorithm="smj"),
-    lambda R: T.join(R, R, algorithm="nphj"),
     lambda R: T.join(R, R, mode="mn"),
     lambda R: T.group_aggregate(R, aggs={"k": "count"}, num_groups=4, strategy="scatter"),
     lambda R: T.group_aggregate(R, aggs={"k": "count"}, num_groups=4,
                                 strategy="partition_hash"),
-], ids=["smj", "nphj", "mn", "scatter", "partition_hash"])
+], ids=["mn", "scatter", "partition_hash"])
 def test_unported_paths_raise(call):
     with pytest.raises(NotImplementedError):
         call(_tt({"k": np.arange(4, dtype=np.int32)}))

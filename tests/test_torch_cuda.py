@@ -15,6 +15,8 @@ from repro_torch.core import hash_join as thj  # noqa: E402
 from repro_torch.data import relgen  # noqa: E402
 from repro_torch.kernels import gather as kgather  # noqa: E402
 from repro_torch.kernels import hash_probe as kprobe  # noqa: E402
+from repro_torch.kernels import histogram as khist  # noqa: E402
+from repro_torch.kernels import merge_join as kmj  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import radix_partition as krp  # noqa: E402
 from repro_torch.kernels import segsum as kseg  # noqa: E402
@@ -288,3 +290,131 @@ def test_groupjoin_on_card_fused_equals_torch_arm_and_reruns_bit_identically(dev
         # rounds by at most 2^-24 relative
         err = (g[name][:m].double() - exact).abs()
         assert bool((err <= 2 * g["r2_count"][:m].double() * 2 ** -24 * exact.abs()).all())
+
+
+# ---------------------------------------------------------------------------
+# the merge lower bound and the global histogram
+# ---------------------------------------------------------------------------
+def _lower_bound_case(rng, case, key_dtype):
+    """(build_sorted, probe) numpy columns for one lower-bound case."""
+    build = np.sort(rng.integers(0, 1 << 22, 300_000))
+    if case == "narrow":  # sorted probe from the build's range: tiles fit the window
+        probe = np.sort(rng.integers(-5, 1 << 22, 1_000_003))
+    elif case == "wide":  # a sparse probe: every tile spans far past the window
+        probe = np.sort(rng.integers(0, 1 << 22, 3000))
+    elif case == "duplicates":  # runs of equal build keys, -1 sentinels first
+        build = np.sort(np.concatenate([rng.integers(0, 50, 200_000), np.full(777, -1)]))
+        probe = np.sort(np.concatenate([rng.integers(-1, 60, 100_001), np.full(2048, -1)]))
+    elif case == "past_the_end":  # half the probe keys beyond the last build key
+        probe = np.sort(rng.integers(0, 1 << 23, 50_000))
+    elif case == "unsorted":
+        probe = rng.integers(-3, (1 << 22) + 3, 40_000)
+    else:  # "empty_build"
+        build, probe = build[:0], np.sort(rng.integers(0, 100, 5000))
+    if key_dtype == np.int64:
+        build = np.where(build >= 0, build << 30, -1)
+        probe = np.where(probe >= 0, probe << 30, -1)
+    return build.astype(key_dtype), probe.astype(key_dtype)
+
+
+@pytest.mark.parametrize("case", ["narrow", "wide", "duplicates", "past_the_end", "unsorted",
+                                  "empty_build"])
+@pytest.mark.parametrize("key_dtype", [np.int32, np.int64])
+def test_lower_bound_kernel_equals_plain(dev, case, key_dtype):
+    build, probe = _lower_bound_case(np.random.default_rng(len(case)), case, key_dtype)
+    b, p = _on(dev, build), _on(dev, probe)
+    before = ops.launch_counts()["lower_bound"]
+    got = kmj.lower_bound(b, p)
+    assert ops.launch_counts()["lower_bound"] == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ref.lower_bound(b, p))
+    np.testing.assert_array_equal(got.cpu().numpy(), np.searchsorted(build, probe, "left"))
+    assert torch.equal(ops.merge_lower_bound(b, p), got)
+
+
+@pytest.mark.parametrize("bins", [1, 256, khist.SMEM_BINS, khist.SMEM_BINS + 1, (1 << 18) + 1])
+def test_histogram_kernel_equals_plain(dev, bins):
+    """Both branches (shared-memory counts up to SMEM_BINS bins, device
+    memory past them); pads (-1) and digits >= bins count nowhere; a view
+    that starts off the 16-byte boundary takes the scalar head."""
+    rng = np.random.default_rng(bins)
+    d = _on(dev, rng.integers(-2, bins + 3, 2_000_003).astype(np.int32))
+    before = ops.launch_counts()["histogram"]
+    for x in (d, d[1:], d[3:11]):
+        got = khist.histogram(x, bins)
+        assert torch.equal(got, ref.histogram(x, bins))
+        assert int(got.sum()) == int(((x >= 0) & (x < bins)).sum())
+    assert ops.launch_counts()["histogram"] == before + 3
+    assert torch.equal(ops.histogram(d, bins), ref.histogram(d, bins))
+
+
+def test_histogram_equals_the_partition_plans_sizes(dev):
+    rng = np.random.default_rng(3)
+    keys = _on(dev, rng.integers(0, 1 << 24, 1_000_000).astype(np.int32))
+    P = 1 << 12
+    dig = thj._digits(keys, 12, True)
+    sizes = ops.partition_plan(dig, P + 1, impl="cuda")[3]
+    assert torch.equal(ops.histogram(dig, P + 1, impl="cuda"), sizes)
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
+    i32 = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        kmj.lower_bound(i32.long(), i32)
+    with pytest.raises(TypeError):
+        kmj.lower_bound(i32.float(), i32.float())
+    with pytest.raises(TypeError):
+        khist.histogram(i32.long(), 4)
+    with pytest.raises(ValueError):
+        khist.histogram(i32, 0)
+
+
+def test_radix_sort_plan_on_card_equals_stable_sort(dev):
+    rng = np.random.default_rng(5)
+    k = rng.integers(-(1 << 31), (1 << 31) - 1, 2_000_001).astype(np.int32)
+    k[::9] = -1
+    k = _on(dev, k)
+    ops.reset_launch_counts()
+    sk, perm = krp.sort_plan_radix(k)
+    got = ops.launch_counts()
+    assert got["block_histograms"] == got["partition_ranks"] == 4
+    tk, tperm = ops.sort_plan(k)
+    assert torch.equal(sk, tk) and torch.equal(perm, tperm) and perm.dtype == torch.int32
+
+
+@pytest.mark.parametrize("pattern", ["gftr", "gfur"])
+def test_smj_on_card_equals_cpu(dev, pattern):
+    """SMJ at J2 scale 1/256 (pk_fk, one lower_bound launch) and at J5 scale
+    1/4096 (m:n) on the card against the same joins on the CPU."""
+    for jid, mode_launches in (("J2", 1), ("J5", 0)):
+        R, S, mode = relgen.generate_tpc(jid, scale=1 / 256 if jid == "J2" else 1 / 4096,
+                                         payload_bytes=8)
+        out = []
+        for where in ("cpu", "cuda"):
+            before = ops.launch_counts()["lower_bound"]
+            J, c = T.join(T.table_from_numpy(R, device=where), T.table_from_numpy(S, device=where),
+                          algorithm="smj", pattern=pattern, mode=mode)
+            moved = ops.launch_counts()["lower_bound"] - before
+            assert moved == (mode_launches if where == "cuda" else 0)
+            out.append((T.table_to_numpy(J), int(c)))
+        (a, ca), (b, cb) = out
+        assert ca == cb > 0
+        for name in a:
+            np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+
+
+def test_nphj_and_join_sequences_on_card_equal_cpu(dev):
+    R, S, _ = relgen.generate_tpc("J2", scale=1 / 256, payload_bytes=8)
+    fact, dims, fks, dks = relgen.generate_star(200_000, 50_000, 3, seed=2)
+    runs = {}
+    for where in ("cpu", "cuda"):
+        Rt, St = T.table_from_numpy(R, device=where), T.table_from_numpy(S, device=where)
+        ft = T.table_from_numpy(fact, device=where)
+        dt = [T.table_from_numpy(d, device=where) for d in dims]
+        runs[where] = [T.join(Rt, St, algorithm="nphj")] + [
+            T.join_sequence(ft, dt, fk_cols=fks, dim_keys=dks, algorithm=alg,
+                            restore_order=True) for alg in ("phj", "smj")]
+    for (a, ca), (b, cb) in zip(runs["cpu"], runs["cuda"]):
+        assert int(ca) == int(cb)
+        for name in a.column_names:
+            assert torch.equal(a[name], b[name].cpu()), name

@@ -31,6 +31,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     code = ("import sys\n"
             "import repro_torch, repro_torch.core, repro_torch.kernels, repro_torch.data\n"
             "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
+            "import repro_torch.core.sort_merge, repro_torch.core.nphj, repro_torch.data.relgen\n"
+            "import repro_torch.core.phases, repro_torch.core.table\n"
+            "import repro_torch.kernels.merge_join, repro_torch.kernels.histogram\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

@@ -13,17 +13,27 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
+
 from repro.core import hash_join as jhj  # noqa: E402
+from repro.core import primitives as jprim  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.histogram import histogram_pallas  # noqa: E402
+from repro.kernels.merge_join import lower_bound_windowed_pallas  # noqa: E402
 from repro.kernels.hash_probe import (hash_probe_pallas, layout_probe_blocks,  # noqa: E402
                                       probe_agg_pallas)
 from repro.kernels.segsum import segsum_partials_pallas  # noqa: E402
 from repro.kernels.radix_partition import (block_histograms_pallas,  # noqa: E402
-                                           partition_ranks_pallas)
+                                           partition_ranks_pallas, sort_plan_radix)
 from repro_torch.core import Table as TTable  # noqa: E402
 from repro_torch.core import groupby as tgb  # noqa: E402
 from repro_torch.core import hash_join as thj  # noqa: E402
+from repro_torch.core import primitives as tprim  # noqa: E402
 from repro_torch.kernels import hash_probe as thp  # noqa: E402
+from repro_torch.kernels import histogram as thist  # noqa: E402
+from repro_torch.kernels import merge_join as tmj  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import radix_partition as trp  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -478,6 +488,156 @@ def test_run_sums_share_one_geometry(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# merge lower bound (SMJ match finding)
+# ---------------------------------------------------------------------------
+def _lb_case(case):
+    """(build_sorted, probe_sorted) int32 for one case, at most 5K keys."""
+    rng = np.random.default_rng(len(case))
+    if case == "duplicates_and_sentinels":
+        build = np.concatenate([np.full(300, -1), rng.integers(0, 400, 3000)])
+        probe = np.concatenate([np.full(700, -1), rng.integers(-1, 420, 4300)])
+    elif case == "past_the_end":  # a third of the probe keys lie past the last build key
+        build = rng.integers(0, 20_000, 2500)
+        probe = rng.integers(0, 30_000, 5000)
+    else:  # "dense"
+        build = rng.integers(0, 1 << 20, 5000)
+        probe = rng.integers(0, 1 << 20, 4000)
+    return np.sort(build).astype(np.int32), np.sort(probe).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["duplicates_and_sentinels", "past_the_end", "dense"])
+def test_lower_bound_matches_pallas_kernel(case):
+    """The port's plain version (its CPU arm) against the Pallas kernel in
+    interpret mode, with the windows the reference's auto arm chooses, and
+    against that arm (which checks the spans and may fall back)."""
+    build, probe = _lb_case(case)
+    jb, jp = jnp.asarray(build), jnp.asarray(probe)
+    win = jnp.searchsorted(jb, jp[::1024]).astype(jnp.int32) // 1024
+    want = lower_bound_windowed_pallas(jb, jp, win, interpret=True)
+    _eq(want, tref.lower_bound(_t(build), _t(probe)))
+    _eq(want, tmj.lower_bound(_t(build), _t(probe)))  # CPU tensors: the plain version
+    _eq(jops.merge_lower_bound(jb, jp, "auto"), tops.merge_lower_bound(_t(build), _t(probe)))
+    _eq(jref.upper_bound(jb, jp), tref.upper_bound(_t(build), _t(probe)))
+    assert tops.merge_lower_bound(_t(build), _t(probe)).dtype == torch.int32
+
+
+@settings(max_examples=10, deadline=None)
+@given(st.lists(st.integers(-1, 60), max_size=300), st.lists(st.integers(-1, 70), max_size=300))
+def test_lower_bound_property(build, probe):
+    b = np.sort(np.array(build, np.int32))
+    p = np.sort(np.array(probe, np.int32))
+    got = tops.merge_lower_bound(_t(b), _t(p), "torch")
+    np.testing.assert_array_equal(got.numpy(), np.searchsorted(b, p, "left"))
+
+
+# ---------------------------------------------------------------------------
+# global histogram
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n,bins", [(1, 2), (1000, 16), (5000, 256), (4097, 257)])
+def test_histogram_matches_pallas_kernel(n, bins):
+    """Negative digits (PAD_DIGIT and below) and digits >= bins count
+    nowhere, as in histogram_pallas."""
+    d = np.random.default_rng(n).integers(-3, bins + 4, n).astype(np.int32)
+    want = histogram_pallas(jnp.asarray(d), bins, interpret=True)
+    _eq(want, thist.histogram(_t(d), bins))  # CPU tensors: the plain version
+    _eq(want, tops.histogram(_t(d), bins))
+    assert tops.histogram(_t(d), bins).dtype == torch.int32
+
+
+def test_histogram_follows_the_kernel_not_the_reference_bincount():
+    """The reference's two arms disagree on negative digits: jnp.bincount
+    counts -1 in bin 0, the Pallas kernel counts it nowhere. The port
+    follows the kernel."""
+    d = np.array([-1, 0, 0, 3, 5], np.int32)
+    np.testing.assert_array_equal(np.asarray(jref.histogram(jnp.asarray(d), 4)), [3, 0, 0, 1])
+    _eq(histogram_pallas(jnp.asarray(d), 4, interpret=True), tops.histogram(_t(d), 4))
+    assert tops.histogram(_t(d), 4).tolist() == [2, 0, 0, 1]
+
+
+# ---------------------------------------------------------------------------
+# sort plans and the remaining primitives
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n", [1, 1000, 5000])
+def test_sort_plan_radix_matches_jax(n):
+    k = np.random.default_rng(n).integers(-(1 << 31), (1 << 31) - 1, n).astype(np.int32)
+    k[::3] = np.random.default_rng(0).integers(-5, 5, k[::3].shape[0])  # duplicates, -1
+    jk, jperm = sort_plan_radix(jnp.asarray(k), interpret=True)
+    for sk, perm in (trp.sort_plan_radix(_t(k)), tops.sort_plan(_t(k)),
+                     tprim.plan_sort_permutation(_t(k))):
+        assert perm.dtype == torch.int32
+        _eq(jk, sk)
+        _eq(jperm, perm)
+    with pytest.raises(TypeError, match="int32 keys"):
+        trp.sort_plan_radix(_t(k.astype(np.int64)))
+
+
+@pytest.mark.parametrize("num_partitions", [300, 1025])
+@pytest.mark.parametrize("max_pass_bits", [1, 3, 8])
+def test_partition_plan_max_pass_bits_matches_jax(num_partitions, max_pass_bits):
+    """The port's one plan (8-bit passes on the card, one stable sort on the
+    CPU), through every layer, against the JAX xla arm's multi-pass loop
+    with capped passes, carry included."""
+    rng = np.random.default_rng(max_pass_bits)
+    d = rng.integers(0, num_partitions, 3000).astype(np.int32)
+    c = rng.integers(-(1 << 30), 1 << 30, 3000).astype(np.int32)
+    jperm, (jc,), joff, jsz = jops.partition_plan(jnp.asarray(d), num_partitions,
+                                                  carry=(jnp.asarray(c),),
+                                                  max_pass_bits=max_pass_bits, impl="xla")
+    port = [tops.partition_plan(_t(d), num_partitions, carry=(_t(c),), impl="torch"),
+            trp.partition_plan(_t(d), num_partitions, carry=(_t(c),)),
+            tprim.plan_partition_permutation(_t(d), num_partitions, carry=(_t(c),))]
+    for perm, (pc,), off, sz in port:
+        for a, b in ((jperm, perm), (jc, pc), (joff, off), (jsz, sz)):
+            _eq(a, b)
+
+
+def test_sort_and_radix_primitives_match_jax():
+    rng = np.random.default_rng(12)
+    n = 2000
+    k = rng.integers(-(1 << 31), (1 << 31) - 1, n).astype(np.int32)
+    k[::4] = rng.integers(0, 9, k[::4].shape[0])
+    nonneg = rng.integers(0, 1 << 31, n).astype(np.int32)
+    v = rng.normal(size=n).astype(np.float32)
+    w = rng.integers(0, 99, n).astype(np.int32)
+    for a, b in zip(jprim.sort_pairs(jnp.asarray(k), jnp.asarray(v), jnp.asarray(w)),
+                    tprim.sort_pairs(_t(k), _t(v), _t(w))):
+        _eq(a, b)
+    _eq(jprim.sort_pairs(jnp.asarray(k)), tprim.sort_pairs(_t(k)))
+    _eq(jprim.argsort_stable(jnp.asarray(k)), tprim.argsort_stable(_t(k)))
+    assert tprim.argsort_stable(_t(k)).dtype == torch.int32
+    for start, bits in ((0, 8), (8, 8), (24, 8), (28, 4), (3, 11), (0, 1)):
+        _eq(jprim.radix_digits(jnp.asarray(k), start, bits), tprim.radix_digits(_t(k), start, bits))
+    for a, b in zip(jprim.partition_permutation(jnp.asarray(w), 99),
+                    tprim.plan_partition_permutation(_t(w), 99)):
+        _eq(a, b)
+    for a, b in zip(jprim.radix_partition(jnp.asarray(k), jnp.asarray(v), start_bit=4, num_bits=6),
+                    tprim.radix_partition(_t(k), _t(v), start_bit=4, num_bits=6)):
+        _eq(a, b)
+    for total_bits in (10, 12):
+        for a, b in zip(jprim.multi_pass_radix_partition(jnp.asarray(k), jnp.asarray(w),
+                                                         total_bits=total_bits, start_bit=5),
+                        tprim.multi_pass_radix_partition(_t(k), _t(w), total_bits=total_bits,
+                                                         start_bit=5)):
+            _eq(a, b)
+    for bits in (1, 8, 9, 16, 31):
+        assert jprim.num_radix_passes(bits) == tprim.num_radix_passes(bits)
+    for a, b in zip(jprim.radix_sort_pairs(jnp.asarray(nonneg), jnp.asarray(v)),
+                    tprim.radix_sort_pairs(_t(nonneg), _t(v))):
+        _eq(a, b)
+    _eq(jprim.radix_sort_pairs(jnp.asarray(nonneg)), tprim.radix_sort_pairs(_t(nonneg)))
+
+
+def test_radix_digits_of_int64_keys_match_numpy():
+    """The JAX package runs without 64-bit integers; the port's 8-byte keys
+    are held against numpy's unsigned pattern."""
+    k = np.random.default_rng(3).integers(-(1 << 63), (1 << 63) - 1, 500)
+    u = k.view(np.uint64)
+    for start, bits in ((0, 8), (56, 8), (60, 8), (33, 20), (63, 1)):
+        want = ((u >> np.uint64(start)) & np.uint64((1 << bits) - 1)).astype(np.int32)
+        np.testing.assert_array_equal(tprim.radix_digits(_t(k), start, bits).numpy(), want)
+
+
+# ---------------------------------------------------------------------------
 # arm selection
 # ---------------------------------------------------------------------------
 _I32 = torch.zeros(4, dtype=torch.int32)
@@ -495,8 +655,11 @@ _BK = torch.full((2, 4), -1, dtype=torch.int32)
     (lambda: tops.groupjoin_probe_agg(_BK, None, _I32, _I32, None, _I32[:2], _I32[:2], 4,
                                       col_sides=(), impl="cuda"),
      "needs CUDA tensors"),
+    (lambda: tops.merge_lower_bound(_I32, _I32, "cuda"), "needs CUDA tensors"),
+    (lambda: tops.histogram(_I32, 4, "cuda"), "needs CUDA tensors"),
+    (lambda: tops.histogram(_I32, 4, "pallas"), "unknown impl"),
 ], ids=["partition_plan", "hash_probe", "clustered_gather", "phj_join", "unknown",
-        "groupjoin_probe_agg"])
+        "groupjoin_probe_agg", "merge_lower_bound", "histogram", "histogram_unknown"])
 def test_impl_selection_raises(call, match):
     """'cuda' on a CPU tensor raises instead of running the plain arm."""
     with pytest.raises(ValueError, match=match):
