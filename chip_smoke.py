@@ -42,9 +42,12 @@
    sums to a stated tolerance), and times the kernel, the plain version and
    the one PyTorch library call that computes the same function where there
    is one (median of CUDA-event timings), beside the least time the card
-   could take. (k) The global histogram is driven through its own entry
-   point (`ops.histogram`) first; its full-fan-out counts must equal the
-   join's partition plan's sizes.
+   could take. A kernel with a library call is also timed against it in 21
+   alternating pairs (the median of each and the min-max of the per-pair
+   ratio). The rank kernel is also timed at the group-by's 257 bins and the
+   join plan's 8-bin last pass. (k) The global histogram is driven through
+   its own entry point (`ops.histogram`) first; its full-fan-out counts must
+   equal the join's partition plan's sizes.
 7. Frees J2 and drives two more paths, with counters as above:
    (i) the m:n sort-merge join of the TPC-DS Q95 extract J5 at scale 1
        (72,000,000 x 72,000,000 rows, keys uniform in [0, 18,000,000), int64
@@ -76,6 +79,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 # operation each, so a quarter of it
 INT32_OPS_PER_S = 67e12 / 4
 N_GROUPS = 15_000_000
+# kernel-against-library pairs per kernel row
+PAIRS = 21
 AGGS = {"s1": "sum", "r1": "max", "r2": "count"}
 # the partition plan runs 3 passes per join side (2^18 + 1 partitions) and
 # 2 for the group-by (2^16 + 1, top partition as a tail class); one probe;
@@ -168,13 +173,22 @@ def check_f32_sums(got, exact, rows, what: str) -> float:
     return float((err / np.maximum(np.abs(exact), 1)).max()) if err.size else 0.0
 
 
-def slot_compares(torch, ref, gke):
-    """Compares of probe_agg's slot scan for masked group keys (B, cap):
-    a row whose key first appears at row i of its sub-block scans i rows,
-    any other row scans up to its key's first row."""
-    rep = ref.first_equal_rows(gke)
-    pos = torch.arange(gke.shape[1], device=gke.device)
-    return int(torch.where(gke != -1, torch.where(rep == pos, pos, rep + 1), 0).sum())
+def paired_ms(torch, kernel_fn, library_fn, pairs: int = PAIRS, warmup: int = 3) -> dict:
+    """A kernel and its library call timed in alternating pairs by CUDA
+    events (the first of each pair swaps every pair), after warm-up: the
+    median of each and the min and max of the per-pair ratio kernel /
+    library."""
+    for _ in range(warmup):
+        kernel_fn()
+        library_fn()
+    k, lib = [], []
+    for i in range(pairs):
+        for fn, out in ((kernel_fn, k), (library_fn, lib))[::1 if i % 2 == 0 else -1]:
+            out.append(cuda_ms(torch, fn, reps=1, warmup=0))
+    ratio = np.array(k) / np.array(lib)
+    return {"pairs": pairs, "pair_ms": float(np.median(k)),
+            "pair_library_ms": float(np.median(lib)), "pair_ratio_min": float(ratio.min()),
+            "pair_ratio_max": float(ratio.max())}
 
 
 class PhaseClock:
@@ -562,6 +576,8 @@ def main() -> None:
                "bound_ms": max(bound_b, bound_o),
                "bound_by": "bytes" if bound_b >= bound_o else "operations",
                "library_ms": cuda_ms(torch, library_fn) if library_fn else None}
+        if library_fn:
+            row.update(paired_ms(torch, kernel_fn, library_fn))
         if library:
             row["library"] = library
         results.append(row)
@@ -595,8 +611,19 @@ def main() -> None:
     check(torch.equal(gh, ref.block_histograms(gd, 257, tile)), "257-bin histograms differ")
     check(torch.equal(krp.rank_with_base(gd, krp.tile_base(gh)[0], 257),
                       ref.partition_ranks(gd, 257)), "257-bin ranks differ")
-    log("kernels block_histograms and partition_ranks at the group-by's 257 bins: exact")
-    del gdig, gd, gh
+    gbase = krp.tile_base(gh)[0]
+    log(f"kernels block_histograms and partition_ranks at the group-by's 257 bins: exact; "
+        f"partition_ranks {cuda_ms(torch, lambda: krp.rank_with_base(gd, gbase, 257)):.6f} ms "
+        f"on {gd.shape[0]} digits")
+    # the join plan's narrow last pass: bits 16-18 of S's digits (8 bins), in
+    # the order the two 8-bit passes before it leave
+    nd = ((dig_s[torch.sort(dig_s & 0xFFFF, stable=True).indices] >> 16) & 7).int().contiguous()
+    nbase = krp.tile_base(krp.block_histograms(nd, 8))[0]
+    check(torch.equal(krp.rank_with_base(nd, nbase, 8), ref.partition_ranks(nd, 8)),
+          "8-bin ranks differ")
+    log(f"kernel partition_ranks at the join plan's last pass (8 bins): exact; "
+        f"{cuda_ms(torch, lambda: krp.rank_with_base(nd, nbase, 8)):.6f} ms")
+    del gdig, gd, gh, gbase, nd, nbase
 
     # the probe and the gathers, on the join's own layout
     P = 1 << p_bits
@@ -651,13 +678,14 @@ def main() -> None:
     agg_bytes = n_s * (4 + 4 + 4) + n_r * (4 + 4) + live * (4 + 2 * 4 + 4)
     agg_padded = (bkeys.numel() * 4 + bvb.numel() * 4 + pk.numel() * (4 + 4 + 4) + B * 4
                   + pk.numel() * (4 + 2 * 4 + 4))
-    gke = torch.where(hit.bool(), gkb, -1)
-    slot_ops = slot_compares(torch, ref, gke)
-    agg_ops = nops + slot_ops + n_s * (len(sides) + 1)
-    del gke
+    # operations the data needs: one match lookup and one group lookup per
+    # probe row, and one add per output column (the sums and the count) per
+    # matched row
+    probe_rows, matched_rows = int((pk != -1).sum()), int(hit.sum())
+    lookups, adds = 2 * probe_rows, matched_rows * (len(sides) + 1)
+    agg_ops = lookups + adds
     log(f"probe_agg: {live} live partials; padded layout bytes={agg_padded} bound "
-        f"{agg_padded / HBM_BYTES_PER_S * 1e3:.6f} ms; compares: probe {nops}, slot scan "
-        f"{slot_ops}; adds {n_s * (len(sides) + 1)}")
+        f"{agg_padded / HBM_BYTES_PER_S * 1e3:.6f} ms; lookups {lookups}, adds {adds}")
     record("probe_agg", list(agg_out), list(agg_plain), lambda: kprobe.probe_agg(*agg_args),
            lambda: ref.probe_agg_blocks(*agg_args), None, agg_bytes, agg_ops, plain_reps=3)
     del pk, part, vid, hit, slot, agg_out, agg_plain, agg_args, gkb, pvb, bvb
@@ -717,9 +745,11 @@ def main() -> None:
     for what, b, p in (("wide spans", kr_sorted, wide), ("int64 keys", kr64, ks64)):
         check(torch.equal(kmj.lower_bound(b, p), ref.lower_bound(b, p)),
               f"lower_bound ({what}) differs from its plain version")
+        t_ = paired_ms(torch, lambda: kmj.lower_bound(b, p), lambda: torch.searchsorted(b, p))
         log(f"kernel lower_bound, {what} ({p.shape[0]} probe keys): exact; "
-            f"{cuda_ms(torch, lambda: kmj.lower_bound(b, p)):.6f} ms against "
-            f"torch.searchsorted {cuda_ms(torch, lambda: torch.searchsorted(b, p)):.6f} ms")
+            f"{t_['pair_ms']:.6f} ms against torch.searchsorted {t_['pair_library_ms']:.6f} ms "
+            f"(medians of {t_['pairs']} pairs; ratio {t_['pair_ratio_min']:.3f}-"
+            f"{t_['pair_ratio_max']:.3f})")
     del kr_sorted, ks_sorted, wide, kr64, ks64, b, p
 
     # the histogram's own entry point as a path: S's first-pass digits and the
@@ -738,10 +768,13 @@ def main() -> None:
            4 * n_s + 4 * 256, library="torch.bincount (int64 counts)")
     check(torch.equal(hfull, ref.histogram(dig_s, P + 1)), "histogram: the full fan-out differs "
           "from its plain version")
+    t_ = paired_ms(torch, lambda: khist.histogram(dig_s, P + 1),
+                   lambda: torch.bincount(dig_s, minlength=P + 1))
+    full_bound = (4 * n_s + 4 * (P + 1)) / HBM_BYTES_PER_S * 1e3
     log(f"kernel histogram, {P + 1} bins (device-memory counts): exact, equal to the plan's "
-        f"sizes; {cuda_ms(torch, lambda: khist.histogram(dig_s, P + 1)):.6f} ms against "
-        f"torch.bincount {cuda_ms(torch, lambda: torch.bincount(dig_s, minlength=P + 1)):.6f} ms, "
-        f"bound {(4 * n_s + 4 * (P + 1)) / HBM_BYTES_PER_S * 1e3:.6f} ms")
+        f"sizes; {t_['pair_ms']:.6f} ms against torch.bincount {t_['pair_library_ms']:.6f} ms "
+        f"(medians of {t_['pairs']} pairs; ratio {t_['pair_ratio_min']:.3f}-"
+        f"{t_['pair_ratio_max']:.3f}), bound {full_bound:.6f} ms")
     clock.done("6 kernels")
 
     # -- 7. free J2 ---------------------------------------------------------

@@ -21,6 +21,10 @@ KEY_SENTINEL = -1
 
 IMPLS = ("torch", "cuda")
 
+# Shared memory one thread block may use on the H100 (227 KB, dynamic,
+# after cudaFuncSetAttribute).
+SMEM_PER_BLOCK = 232_448
+
 # One launch counter per hand-written kernel.
 KERNELS = ("block_histograms", "partition_ranks", "hash_probe", "clustered_gather",
            "probe_agg", "segsum_partials", "lower_bound", "histogram")

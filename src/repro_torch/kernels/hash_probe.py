@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from . import _build, ref
-from .common import KEY_SENTINEL, LAUNCHES
+from .common import KEY_SENTINEL, LAUNCHES, SMEM_PER_BLOCK, ceil_div
 
 
 def hash_probe(bkeys: torch.Tensor, off_r: torch.Tensor, probe_blocks: torch.Tensor,
@@ -51,9 +51,26 @@ def hash_probe(bkeys: torch.Tensor, off_r: torch.Tensor, probe_blocks: torch.Ten
     return vid, hit
 
 
-# The kernel's shared memory holds the build block, the row values and the
-# masked group keys of one sub-block; the card lets a block use 227 KB.
-_SMEM_LIMIT = 232_448
+# The kernel runs one thread per probe row. Its shared memory holds two hash
+# tables (build keys and group keys, each at least twice its rows, rounded
+# up to a power of two), a lane word per (warp, slot), a chunk word per
+# slot, each row's value of each output column and its successor in its
+# slot, and two copies of a sub-block's probe values and its build block's
+# keys and values.
+_MAX_ROWS = 1024
+
+
+def _probe_agg_smem(cap_r: int, cap_s: int, key_bytes: int, cb: int, cp: int, c: int) -> int:
+    """Bytes of shared memory the kernel asks for (csrc/probe_agg.cu
+    smem_bytes)."""
+    def words(n):  # int32 words, rounded up to 16 bytes
+        return ceil_div(n, 4) * 4
+
+    hb, hg = 1 << max(1, (2 * cap_r - 1).bit_length()), 1 << max(1, (2 * cap_s - 1).bit_length())
+    tables = words(hg * key_bytes // 4 + 2 * hb + hg + ceil_div(cap_s, 32) * cap_s + cap_s
+                   + c * cap_s + cap_s)
+    half = words(cp * cap_s) + words(cap_r) + words(cb * cap_r)
+    return 4 * (tables + 2 * half)
 
 
 def probe_agg(bkeys: torch.Tensor, bvals: torch.Tensor, probe_blocks: torch.Tensor,
@@ -98,10 +115,14 @@ def probe_agg(bkeys: torch.Tensor, bvals: torch.Tensor, probe_blocks: torch.Tens
             raise ValueError(f"column source {(side, j)} is not in the {Cp} probe and "
                              f"{Cb} build value columns")
         src.append(j if side == "probe" else -j - 1)
-    smem = cap_s * (gk_blocks.element_size() + 4) + cap_r * 4 * (1 + Cb) + C * cap_s * 4
-    if cap_r < 1 or smem > _SMEM_LIMIT:
+    if cap_r < 1 or cap_s > _MAX_ROWS:
+        raise ValueError(f"the kernel takes sub-blocks of at most {_MAX_ROWS} rows and build "
+                         f"blocks of at least one key, got {cap_s} and {cap_r}")
+    smem = _probe_agg_smem(cap_r, cap_s, gk_blocks.element_size(), Cb, Cp, C)
+    if smem > SMEM_PER_BLOCK:
         raise ValueError(f"a sub-block of {cap_s} rows against {cap_r} build keys with {Cb} "
-                         f"build and {C} output columns needs {smem} bytes of shared memory")
+                         f"build and {Cp} probe value columns and {C} output columns needs "
+                         f"{smem} bytes of shared memory")
     pk = torch.empty((B, cap_s), dtype=gk_blocks.dtype, device=dev)
     ps = torch.empty((B, C, cap_s), dtype=torch.float32, device=dev)
     pc = torch.empty((B, cap_s), dtype=torch.int32, device=dev)

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import _build, ref
-from .common import LAUNCHES, ceil_div
+from .common import LAUNCHES, SMEM_PER_BLOCK, ceil_div
 
 # digits per tile of the histogram and rank kernels (the TPU kernel's
 # 8 x 128 block)
@@ -31,6 +31,13 @@ PASS_BITS = 8
 # the histogram and rank kernels keep num_bins counts per tile (per warp) in
 # shared memory
 MAX_BINS = 1 << 10
+# the rank kernel's shared memory: 4 warps a block, each with two buffers of
+# a tile's digits and its base row and three sets of peer words per digit
+_RANK_WARPS = 4
+
+
+def _rank_smem(num_bins: int, tile: int) -> int:
+    return _RANK_WARPS * (5 * ceil_div(num_bins, 4) + 2 * ceil_div(tile, 4)) * 16
 
 
 def _check_digits(digits: torch.Tensor, num_bins: int) -> None:
@@ -84,6 +91,9 @@ def rank_with_base(digits: torch.Tensor, base: torch.Tensor, num_bins: int, *,
             or not base.is_contiguous() or base.device != digits.device:
         raise ValueError(f"base must be a contiguous int32 ({ceil_div(n, tile)}, {num_bins}) "
                          f"tensor on {digits.device}, got {base.dtype} {tuple(base.shape)}")
+    if tile < 1 or _rank_smem(num_bins, tile) > SMEM_PER_BLOCK:
+        raise ValueError(f"tiles of {tile} digits with {num_bins} bins do not fit the rank "
+                         "kernel's shared memory")
     dest = torch.empty(n, dtype=torch.int32, device=digits.device)
     if n == 0:
         return dest

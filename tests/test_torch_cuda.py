@@ -198,6 +198,117 @@ def test_probe_agg_kernel_many_groups_per_tile(dev):
     torch.testing.assert_close(out[1], want[1], **SUM_TOL)
 
 
+# Edge cases of the redesigned kernel (hash tables in shared memory, slots by
+# atomicMin, rows ordered by a block scan): keys, counts and the float32 sums
+# must equal the plain version's exactly, and a second launch must give the
+# same bits.
+PROBE_AGG_EDGES = [(case, key_dtype) for case in ("own_group", "one_group", "dup_build_key",
+                                                  "miss_and_padding")
+                   for key_dtype in (np.int32, np.int64)] + [("low32_agree", np.int64)]
+
+
+def _probe_agg_edge(rng, case, cap, key_dtype, B=12, P=5):
+    """(bkeys, bvals, probe, gk, pv, part) numpy arrays for one edge case:
+    every row its own group; every row one group; build blocks that hold
+    each key twice (the second copy with other values, so the first match
+    must win); int64 group keys equal in their low 32 bits; sub-blocks all
+    padding or all misses."""
+    nb = max(1, cap // 2) if case == "dup_build_key" else cap
+    bkeys = np.full((P, cap), -1, np.int32)
+    for p in range(P):
+        keys = rng.choice(1 << 20, nb, replace=False)
+        bkeys[p, :nb] = keys
+        if case == "dup_build_key":
+            bkeys[p, nb:2 * nb] = rng.permutation(keys)[:cap - nb]
+    part = rng.integers(0, P, B).astype(np.int32)
+    probe = np.stack([rng.choice(bkeys[p][bkeys[p] >= 0], cap) for p in part]).astype(np.int32)
+    if case == "own_group":
+        gk = rng.permutation(B * cap).reshape(B, cap) + 3
+    elif case == "one_group":
+        gk = np.full((B, cap), 11)
+    elif case == "low32_agree":
+        gk = (rng.integers(0, 6, (B, cap)) << 32) + 5
+    else:
+        gk = rng.integers(0, 9, (B, cap))
+    if case == "miss_and_padding":
+        probe[::2] = -1
+        probe[1::2] = rng.integers(1 << 21, 1 << 22, (B // 2, cap))
+    gk = gk.astype(key_dtype)
+    if key_dtype == np.int64 and case != "low32_agree":
+        gk += 1 << 40
+    bvals = rng.normal(size=(P, 2, cap)).astype(np.float32)
+    pv = rng.normal(size=(B, 2, cap)).astype(np.float32)
+    return bkeys, bvals, probe, gk, pv, part
+
+
+@pytest.mark.parametrize("cap", [32, 256, 100])
+@pytest.mark.parametrize("case,key_dtype", PROBE_AGG_EDGES,
+                         ids=[f"{c}-{np.dtype(k).name}" for c, k in PROBE_AGG_EDGES])
+@pytest.mark.parametrize("col_sides", [(), (("probe", 1), ("build", 0), ("build", 1))],
+                         ids=["count_only", "three_columns"])
+def test_probe_agg_kernel_edge_cases_equal_plain_exactly(dev, cap, case, key_dtype, col_sides):
+    args = tuple(_on(dev, a) for a in _probe_agg_edge(np.random.default_rng(cap), case, cap,
+                                                      key_dtype))
+    before = ops.launch_counts()["probe_agg"]
+    got = kprobe.probe_agg(*args, col_sides)
+    again = kprobe.probe_agg(*args, col_sides)
+    assert ops.launch_counts()["probe_agg"] == before + 2
+    want = ref.probe_agg_blocks(*args, col_sides)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, a)
+    pc = got[2]
+    live = int((args[2] != -1).sum())
+    if case == "miss_and_padding":
+        assert int(pc.sum()) == 0 and bool((got[0] == -1).all())
+    else:  # every row matches
+        assert int(pc.sum()) == live
+    if case == "own_group":
+        assert bool((pc == 1).all())
+    if case == "one_group":
+        assert bool((pc[:, 0] == cap).all()) and int(pc[:, 1:].sum()) == 0
+    if case == "low32_agree":  # six keys of one low word: six slots a sub-block at most
+        assert bool(((pc > 0).sum(dim=1) <= 6).all()) and int((pc > 0).sum()) > pc.shape[0]
+
+
+def _rank_case(rng, case):
+    """(digits, num_bins) for one edge case of the rank kernel."""
+    if case == "all_equal":
+        return np.full(5000, 7, np.int32), 256
+    if case == "only_pads":  # negative, and past the last bin
+        return np.where(rng.random(3000) < 0.5, -1, 300).astype(np.int32), 256
+    if case == "below_one_tile":
+        return rng.integers(-1, 256, 333).astype(np.int32), 256
+    if case == "one_digit":
+        return np.array([3], np.int32), 8
+    if case == "ragged_tail":  # 3 tiles and 5 digits: the tail takes 4-byte copies
+        return rng.integers(-1, 256, 3 * krp.TILE + 5).astype(np.int32), 256
+    if case == "skewed":  # half the digits 0, the rest geometric
+        d = np.minimum(rng.geometric(0.05, 200_003) - 1, 255)
+        d[rng.random(d.shape[0]) < 0.5] = 0
+        return d.astype(np.int32), 256
+    bins = int(case.split("_")[1])  # "bins_<n>"
+    return rng.integers(-1, bins + 2, 100_000).astype(np.int32), bins
+
+
+RANK_CASES = ["all_equal", "only_pads", "below_one_tile", "one_digit", "ragged_tail", "skewed",
+              "bins_1", "bins_8", "bins_257", "bins_1024"]
+
+
+@pytest.mark.parametrize("case", RANK_CASES)
+def test_rank_kernel_edge_cases_equal_plain_exactly(dev, case):
+    """The digits also as a view that starts one element in, off the 16-byte
+    boundary (4-byte copies)."""
+    d_np, bins = _rank_case(np.random.default_rng(len(case)), case)
+    whole = _on(dev, np.concatenate([[0], d_np]).astype(np.int32))
+    for d in (_on(dev, d_np), whole[1:]):
+        base, _, _ = krp.tile_base(ref.block_histograms(d, bins, krp.TILE))
+        before = ops.launch_counts()["partition_ranks"]
+        got = krp.rank_with_base(d, base, bins)
+        again = krp.rank_with_base(d, base, bins)
+        assert ops.launch_counts()["partition_ranks"] == before + 2
+        assert torch.equal(got, ref.partition_ranks(d, bins)) and torch.equal(got, again)
+
+
 def _sorted_case(rng, n, key_dtype=np.int32):
     """Key-sorted rows: sentinel rows first, runs of 1-20 rows, one run of
     256 rows on a tile edge, one of 700 across tiles, and a ragged tail."""
@@ -367,6 +478,12 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
         khist.histogram(i32.long(), 4)
     with pytest.raises(ValueError):
         khist.histogram(i32, 0)
+    # probe_agg runs one thread per row: at most 1024 rows a sub-block
+    wide = torch.full((1, 1056), -1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        kprobe.probe_agg(wide[:, :8], torch.zeros((1, 0, 8), device=dev), wide, wide,
+                         torch.zeros((1, 0, 1056), device=dev),
+                         torch.zeros(1, dtype=torch.int32, device=dev), ())
 
 
 def test_radix_sort_plan_on_card_equals_stable_sort(dev):

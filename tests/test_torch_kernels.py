@@ -38,6 +38,8 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import radix_partition as trp  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import segsum as tseg  # noqa: E402
+from test_torch_cuda import (PROBE_AGG_EDGES, RANK_CASES, _probe_agg_edge,  # noqa: E402
+                             _rank_case)
 
 
 def _t(a):
@@ -115,6 +117,21 @@ def test_block_histograms_and_ranks_match_pallas(n, bins):
     for a, b in zip(partition_ranks_pallas(jd, bins, interpret=True), (dest, off, sz)):
         _eq(a, b)
     assert dest.dtype == off.dtype == sz.dtype == torch.int32
+
+
+@pytest.mark.parametrize("case", RANK_CASES)
+def test_rank_edge_cases_match_pallas(case):
+    """The edge cases the card tests hold the rank kernel to (all digits
+    equal, only pads, below one tile, a ragged tail, a skewed mix, 1 to 1024
+    bins): the plain version against the Pallas kernels. The port treats a
+    digit >= num_bins as a pad; the Pallas rank kernel gives such a digit
+    base + 0, so it is handed -1 there instead."""
+    d, bins = _rank_case(np.random.default_rng(len(case)), case)
+    jd = jnp.asarray(np.where(d >= bins, -1, d).astype(np.int32))
+    _eq(block_histograms_pallas(jd, bins, interpret=True), trp.block_histograms(_t(d), bins))
+    for a, b in zip(partition_ranks_pallas(jd, bins, interpret=True),
+                    trp.partition_ranks(_t(d), bins)):
+        _eq(a, b)
 
 
 @pytest.mark.parametrize("num_partitions", [5, 256, 257, 300, 1025, 65537])
@@ -322,6 +339,41 @@ def test_probe_agg_blocks_int64_group_keys():
     k32 = a[0].numpy().astype(np.int64)
     _eq(np.where(k32 >= 0, k32 + (1 << 40), -1), b[0])
     assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+
+
+# the edge cases the card tests hold the redesigned kernel to
+# (tests/test_torch_cuda.py), on the plain version against the Pallas kernel
+EDGE_CASES = [c for c, k in PROBE_AGG_EDGES if k == np.int32] + ["low32_agree"]
+
+
+@pytest.mark.parametrize("cap", [32, 256, 100])
+@pytest.mark.parametrize("case", EDGE_CASES)
+@pytest.mark.parametrize("sides", ["count_only", "probe_and_build"])
+def test_probe_agg_blocks_edge_cases_match_pallas_kernel(case, cap, sides):
+    """Every row its own group, one group, build keys held twice, int64 keys
+    equal in their low word, all-miss and all-padding sub-blocks. The JAX
+    package's integers are 32-bit, so int64 group keys reach it as their
+    ranks (slots depend only on key equality) and its keys are mapped back.
+    Keys and counts exactly, float32 sums to SUM_TOL."""
+    key_dtype = np.int64 if case == "low32_agree" else np.int32
+    bkeys, bvals, probe, gk, pv, part = _probe_agg_edge(np.random.default_rng(cap), case, cap,
+                                                        key_dtype)
+    uniq, ids = np.unique(gk, return_inverse=True)
+    jgk = np.where(gk == -1, -1, ids.reshape(gk.shape)).astype(np.int32)
+    col_sides = COL_SIDES[sides]
+    jk, js, jc = probe_agg_pallas(*map(jnp.asarray, (bkeys, bvals, probe, jgk, pv, part)),
+                                  col_sides=col_sides or (("probe", 0),), interpret=True)
+    pk, ps, pc = thp.probe_agg(*map(_t, (bkeys, bvals, probe, gk, pv, part)), col_sides)
+    assert pk.dtype == torch.from_numpy(gk).dtype
+    jk = np.asarray(jk)
+    _eq(np.where(jk >= 0, uniq[np.maximum(jk, 0)], -1).astype(key_dtype), pk)
+    _eq(jc, pc)
+    if col_sides:
+        np.testing.assert_allclose(ps.numpy(), np.asarray(js), **SUM_TOL)
+    if case == "miss_and_padding":
+        assert int(pc.sum()) == 0
+    else:  # every row matches
+        assert int(pc.sum()) == probe.size
 
 
 # ---------------------------------------------------------------------------
