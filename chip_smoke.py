@@ -45,7 +45,10 @@
    could take. A kernel with a library call is also timed against it in 21
    alternating pairs (the median of each and the min-max of the per-pair
    ratio). The rank kernel is also timed at the group-by's 257 bins and the
-   join plan's 8-bin last pass. (k) The global histogram is driven through
+   join plan's 8-bin last pass. The gather has a row for each of PHJ-OM's
+   two maps (build side, probe side), the lower bound a row for J2's sweep,
+   for a short probe column whose tiles span far past its ring of build keys,
+   and for int64 keys. (k) The global histogram is driven through
    its own entry point (`ops.histogram`) first; its full-fan-out counts must
    equal the join's partition plan's sizes.
 7. Frees J2 and drives two more paths, with counters as above:
@@ -176,8 +179,8 @@ def check_f32_sums(got, exact, rows, what: str) -> float:
 def paired_ms(torch, kernel_fn, library_fn, pairs: int = PAIRS, warmup: int = 3) -> dict:
     """A kernel and its library call timed in alternating pairs by CUDA
     events (the first of each pair swaps every pair), after warm-up: the
-    median of each and the min and max of the per-pair ratio kernel /
-    library."""
+    median of each and the min, median and max of the per-pair ratio
+    kernel / library."""
     for _ in range(warmup):
         kernel_fn()
         library_fn()
@@ -188,7 +191,7 @@ def paired_ms(torch, kernel_fn, library_fn, pairs: int = PAIRS, warmup: int = 3)
     ratio = np.array(k) / np.array(lib)
     return {"pairs": pairs, "pair_ms": float(np.median(k)),
             "pair_library_ms": float(np.median(lib)), "pair_ratio_min": float(ratio.min()),
-            "pair_ratio_max": float(ratio.max())}
+            "pair_ratio_median": float(np.median(ratio)), "pair_ratio_max": float(ratio.max())}
 
 
 class PhaseClock:
@@ -554,9 +557,10 @@ def main() -> None:
     results = []
 
     def record(name, kernel_out, plain_out, kernel_fn, plain_fn, library_fn, nbytes, nops=0,
-               plain_reps=5, library=None):
+               plain_reps=5, library=None, shape=None):
         """Integer outputs must equal the plain version's; float outputs may
-        differ by KERNEL_SUM_RTOL of their magnitude."""
+        differ by KERNEL_SUM_RTOL of their magnitude. A kernel timed at more
+        than one shape has a row per shape, named by `shape`."""
         for k, p in zip(kernel_out, plain_out):
             check(k.shape == p.shape and k.dtype == p.dtype, f"{name}: shape/dtype differ")
             if k.dtype.is_floating_point:
@@ -580,8 +584,11 @@ def main() -> None:
             row.update(paired_ms(torch, kernel_fn, library_fn))
         if library:
             row["library"] = library
+        if shape:
+            row["shape"] = shape
         results.append(row)
-        log(f"kernel {name}: {'exact' if err == 0 else f'max abs err {err}'}; "
+        log(f"kernel {name}{f' ({shape})' if shape else ''}: "
+            f"{'exact' if err == 0 else f'max abs err {err}'}; "
             f"{json.dumps(row)} bytes={nbytes} ops={nops}")
 
     # the first plan pass of the probe side: 60M digits, 256 bins
@@ -690,17 +697,22 @@ def main() -> None:
            lambda: ref.probe_agg_blocks(*agg_args), None, agg_bytes, agg_ops, plain_reps=3)
     del pk, part, vid, hit, slot, agg_out, agg_plain, agg_args, gkb, pvb, bvb
 
+    # PHJ-OM's gathers, as phj_join maps them: r1 from the partitioned build
+    # side through id_r (clustered within partitions), s1 from the
+    # partitioned probe side through id_s (perfectly clustered)
     vid_r, matched = ops.hash_probe(bkeys, off_r[:P], ks, off_s[:P], sz_s[:P], "cuda")
-    (_, vr), c = prim.compact(matched, [ks, vid_r], n_s, fill=-1)
-    id_r = torch.where(torch.arange(n_s, device=dev) < c, vr, -1)
-    src = R["r1"][perm_r]
-    idx_long = id_r.clamp(min=0).long()  # all valid here, so take computes the same
-    record("clustered_gather", [kgather.clustered_gather(src, id_r)],
-           [ref.clustered_gather(src, id_r)], lambda: kgather.clustered_gather(src, id_r),
-           lambda: ref.clustered_gather(src, id_r), lambda: torch.take(src, idx_long),
-           src.numel() * 8 + id_r.numel() * 4 + id_r.numel() * 8)
-
-    del src, idx_long, id_r, vr, vid_r, matched
+    vid_s = torch.arange(n_s, dtype=torch.int32, device=dev)
+    (_, vr, vs), c = prim.compact(matched, [ks, vid_r, vid_s], n_s, fill=-1)
+    valid = torch.arange(n_s, device=dev) < c
+    id_r, id_s = torch.where(valid, vr, -1), torch.where(valid, vs, -1)
+    for shape, src, idx in (("r1 through id_r", R["r1"][perm_r], id_r),
+                            ("s1 through id_s", S["s1"][perm_s], id_s)):
+        idx_long = idx.clamp(min=0).long()  # all valid here, so take computes the same
+        record("clustered_gather", [kgather.clustered_gather(src, idx)],
+               [ref.clustered_gather(src, idx)], lambda: kgather.clustered_gather(src, idx),
+               lambda: ref.clustered_gather(src, idx), lambda: torch.take(src, idx_long),
+               src.numel() * 8 + idx.numel() * 4 + idx.numel() * 8, shape=shape)
+    del src, idx, idx_long, id_r, id_s, vr, vs, vid_r, vid_s, valid, matched
 
     # the sort_pallas group-by's s1 pass: the join output's keys in sorted
     # order and s1 as float32
@@ -728,28 +740,27 @@ def main() -> None:
     del sk, sv, seg_out, seg_plain, lengths
 
     # -- 6k. the merge lower bound and the global histogram -------------------
-    # SMJ-OM's sweep: S's sorted keys against R's sorted keys
+    # SMJ-OM's sweep: S's sorted keys against R's sorted keys; 100,000 sorted
+    # probe keys over R's range, whose tiles span far past the ring of build keys
+    # (what smj_join gives when the probe side is much the smaller, e.g. after
+    # a selective filter); and S's and R's keys as int64
     kr_sorted, ks_sorted = torch.sort(R["k"]).values, torch.sort(S["k"]).values
-    record("lower_bound", [kmj.lower_bound(kr_sorted, ks_sorted)],
-           [ref.lower_bound(kr_sorted, ks_sorted)], lambda: kmj.lower_bound(kr_sorted, ks_sorted),
-           lambda: ref.lower_bound(kr_sorted, ks_sorted),
-           lambda: torch.searchsorted(kr_sorted, ks_sorted), 4 * n_s + 4 * n_r + 4 * n_s,
-           library="torch.searchsorted (int64 bounds; the plain version is the same call with "
-                   "int32 bounds)")
-    # tiles wider than the shared window: 100,000 sorted probe keys over R's
-    # range (about 150,000 build keys per tile); and 8-byte keys
     gen = torch.Generator(device=dev).manual_seed(0)
     wide = torch.sort(torch.randint(-1, n_r + 5, (100_000,), generator=gen, device=dev,
                                     dtype=torch.int32)).values
     kr64, ks64 = kr_sorted.long() << 33, ks_sorted.long() << 33
-    for what, b, p in (("wide spans", kr_sorted, wide), ("int64 keys", kr64, ks64)):
-        check(torch.equal(kmj.lower_bound(b, p), ref.lower_bound(b, p)),
-              f"lower_bound ({what}) differs from its plain version")
-        t_ = paired_ms(torch, lambda: kmj.lower_bound(b, p), lambda: torch.searchsorted(b, p))
-        log(f"kernel lower_bound, {what} ({p.shape[0]} probe keys): exact; "
-            f"{t_['pair_ms']:.6f} ms against torch.searchsorted {t_['pair_library_ms']:.6f} ms "
-            f"(medians of {t_['pairs']} pairs; ratio {t_['pair_ratio_min']:.3f}-"
-            f"{t_['pair_ratio_max']:.3f})")
+    for shape, b, p in (("J2: S's sorted keys over R's", kr_sorted, ks_sorted),
+                        ("wide spans: 100,000 sorted keys over R's", kr_sorted, wide),
+                        ("int64 keys: S's over R's", kr64, ks64)):
+        # bytes: each probe key read and its bound written once, and the build
+        # keys the bounds need: at least one per probe key, at most the column
+        kb = p.element_size()
+        record("lower_bound", [kmj.lower_bound(b, p)], [ref.lower_bound(b, p)],
+               lambda: kmj.lower_bound(b, p), lambda: ref.lower_bound(b, p),
+               lambda: torch.searchsorted(b, p),
+               kb * p.shape[0] + 4 * p.shape[0] + kb * min(b.shape[0], p.shape[0]),
+               library="torch.searchsorted (int64 bounds; the plain version is the same call "
+                       "with int32 bounds)", shape=shape)
     del kr_sorted, ks_sorted, wide, kr64, ks64, b, p
 
     # the histogram's own entry point as a path: S's first-pass digits and the

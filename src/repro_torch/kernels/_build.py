@@ -105,6 +105,15 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def raw_stream(t) -> int:
+    """The handle of PyTorch's current stream on t's card, without building a
+    `torch.cuda.Stream` (a few microseconds a launch, which short kernels
+    feel)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
 def check(lib: ctypes.CDLL, name: str, err: int) -> None:
     if err != 0:
         msg = lib.kernel_error_string(err).decode()

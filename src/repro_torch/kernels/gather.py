@@ -1,9 +1,11 @@
 """Clustered GATHER (GFTR materialization).
 
 For a gather map that is clustered, as GFTR's tuple IDs are, neighbouring
-outputs read neighbouring source rows, so a plain per-element gather on the
-card already reads each source line about once. The kernel copies 4- or
-8-byte elements and needs no span check: it is right for any index.
+outputs read neighbouring source rows. The kernel copies 4- or 8-byte
+elements, eight outputs a thread; a warp stages the source window of its 256
+outputs in shared memory when it is at most 256 rows wide, and reads device
+memory directly when it is wider, so it needs no span check: it is right for
+any index.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ def clustered_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     lib = _build.load("clustered_gather")
     err = lib.clustered_gather(src.data_ptr(), idx.data_ptr(), src.shape[0], idx.shape[0],
                                src.element_size(), out.data_ptr(),
-                               torch.cuda.current_stream(src.device).cuda_stream)
+                               _build.raw_stream(src))
     _build.check(lib, "clustered_gather", err)
     LAUNCHES["clustered_gather"] += 1
     return out

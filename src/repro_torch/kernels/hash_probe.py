@@ -45,7 +45,7 @@ def hash_probe(bkeys: torch.Tensor, off_r: torch.Tensor, probe_blocks: torch.Ten
     err = lib.hash_probe(bkeys.data_ptr(), off_r.data_ptr(), probe_blocks.data_ptr(),
                          block_part.data_ptr(), B, P, cap_r, cap_s, vid.data_ptr(),
                          hit.data_ptr(),
-                         torch.cuda.current_stream(probe_blocks.device).cuda_stream)
+                         _build.raw_stream(probe_blocks))
     _build.check(lib, "hash_probe", err)
     LAUNCHES["hash_probe"] += 1
     return vid, hit
@@ -134,7 +134,7 @@ def probe_agg(bkeys: torch.Tensor, bvals: torch.Tensor, probe_blocks: torch.Tens
                         gk_blocks.data_ptr(), pv_blocks.data_ptr(), block_part.data_ptr(),
                         col_src.data_ptr(), B, P, cap_r, cap_s, Cb, Cp, C,
                         gk_blocks.element_size(), pk.data_ptr(), ps.data_ptr(), pc.data_ptr(),
-                        torch.cuda.current_stream(dev).cuda_stream)
+                        _build.raw_stream(pk))
     _build.check(lib, "probe_agg", err)
     LAUNCHES["probe_agg"] += 1
     return pk, ps, pc

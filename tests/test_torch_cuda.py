@@ -443,6 +443,133 @@ def test_lower_bound_kernel_equals_plain(dev, case, key_dtype):
     assert torch.equal(ops.merge_lower_bound(b, p), got)
 
 
+# one persistent wave of the lower-bound kernel on an H100 holds at most 132
+# SMs x 8 blocks x 2048 keys; one key more starts a second
+LB_WAVE = 132 * 8 * 2048 + 1
+LB_SPANS = ("span_window-1", "span_window", "span_window+1", "span_sample9", "span_sample9+1",
+            "span_wide")
+LB_EDGES = ["n1", "n31", "n1023", "n1025", "wave", *LB_SPANS, "tiles_descending",
+            "keys_descending", "shuffled", "sentinels", "empty_build"]
+
+
+def _lb_edge(case, key_dtype):
+    """(build_sorted, probe) numpy columns for one edge case of the lower-bound
+    kernel: probe counts around its tiles and waves; tiles whose bounds span
+    just below, at and above its ring of build keys and its sampled index's
+    steps;
+    probe keys out of order across tiles, within runs and everywhere;
+    sentinels; an empty build column. int64 keys are the int32 ones times
+    2^30 (sentinels stay -1), so every bound is the same."""
+    rng = np.random.default_rng(len(case))
+    build = np.sort(rng.integers(0, 1 << 20, 200_000))
+    if case.startswith("n") or case == "wave":
+        n = LB_WAVE if case == "wave" else int(case[1:])
+        probe = np.sort(rng.integers(-1, (1 << 20) + 10, n))
+    elif case in LB_SPANS:
+        # six tiles of 256 keys (a short probe column gets the smallest
+        # tile); tile i runs from 3 a to 3 (a + span) over build = 3 arange,
+        # so its bounds are exactly a and a + span
+        window = kmj.RING_BYTES // np.dtype(key_dtype).itemsize
+        span = {"span_window-1": window - 1, "span_window": window,
+                "span_window+1": window + 1, "span_sample9": 9 * kmj.SAMPLE,
+                "span_sample9+1": 9 * kmj.SAMPLE + 1, "span_wide": 1_000_003}[case]
+        build = 3 * np.arange(6 * (span + 17) + 1)
+        tiles = []
+        for i in range(6):
+            a = i * (span + 17)
+            t = np.sort(rng.integers(3 * a, 3 * (a + span) + 1, kmj.TILE_KEYS[0]))
+            t[0], t[-1] = 3 * a, 3 * (a + span)
+            tiles.append(t)
+        probe = np.concatenate(tiles)
+    elif case == "tiles_descending":
+        # past one wave, in the kernel's widest tiles: each tile sorted, every
+        # tile below the one before, so each block's next tile breaks the
+        # bracket it searches from
+        tile = kmj.TILE_KEYS[1]
+        probe = np.sort(rng.integers(0, 1 << 20, (LB_WAVE // tile + 1) * tile))
+        probe = probe.reshape(-1, tile)[::-1].ravel()
+    elif case == "keys_descending":
+        probe = np.sort(rng.integers(-1, (1 << 20) + 10, LB_WAVE))[::-1]
+    elif case == "shuffled":
+        probe = rng.integers(-3, (1 << 20) + 3, 40_000)
+    elif case == "sentinels":  # -1 in both columns; the first tiles hold only -1
+        build = np.sort(np.concatenate([rng.integers(0, 50, 200_000), np.full(777, -1)]))
+        probe = np.sort(np.concatenate([rng.integers(-1, 60, 2000), np.full(3000, -1)]))
+    else:  # "empty_build"
+        build, probe = build[:0], np.sort(rng.integers(0, 100, 5000))
+    if key_dtype == np.int64:
+        build = np.where(build >= 0, build << 30, -1)
+        probe = np.where(probe >= 0, probe << 30, -1)
+    return build.astype(key_dtype), np.ascontiguousarray(probe).astype(key_dtype)
+
+
+@pytest.mark.parametrize("case", LB_EDGES)
+@pytest.mark.parametrize("key_dtype", [np.int32, np.int64])
+def test_lower_bound_kernel_edge_cases_equal_plain(dev, case, key_dtype):
+    build, probe = _lb_edge(case, key_dtype)
+    b, p = _on(dev, build), _on(dev, probe)
+    before = ops.launch_counts()["lower_bound"]
+    got = kmj.lower_bound(b, p)
+    assert ops.launch_counts()["lower_bound"] == before + 1
+    assert torch.equal(got, ref.lower_bound(b, p))
+    np.testing.assert_array_equal(got.cpu().numpy(), np.searchsorted(build, probe, "left"))
+
+
+GATHER_EDGES = [f"len{n}" for n in range(10)] + [
+    "ragged_tail", "offset1", "offset2", "offset3", "negative_and_past_end", "unclustered",
+    "wide_windows"]
+GATHER_DTYPES = [np.int32, np.float32, np.int64, np.float64]
+
+
+def _gather_edge(case, dtype):
+    """(src, idx, offset) numpy arrays for one edge case of the gather kernel;
+    the kernel gets the views src[offset:] and idx[offset:], which start
+    offset elements past a 16-byte boundary on the card. Lengths 0 to 9 and
+    a ragged tail; negative, past-the-end and unclustered indices; clustered
+    indices whose windows are wider than a warp step's share of shared memory."""
+    rng = np.random.default_rng(len(case))
+    n_src, offset = 5000, 0
+    if case.startswith("len"):
+        idx = np.sort(rng.integers(-1, n_src + 10, int(case[3:])))
+    elif case == "ragged_tail":  # not a whole number of steps; compacted -1 tail
+        idx = np.sort(rng.integers(0, n_src, 256 * 37 + 173))
+        idx[-300:] = -1
+    elif case.startswith("offset"):
+        offset = int(case[6:])
+        idx = np.sort(rng.integers(0, n_src, 10_000 + offset))
+    elif case == "negative_and_past_end":
+        idx = rng.integers(-n_src, 2 * n_src, 20_000)
+    elif case == "unclustered":
+        idx = rng.permutation(np.resize(np.arange(n_src), 20_001))
+    else:  # "wide_windows": every step of 256 outputs spans about 12,800 rows
+        n_src = 1_000_000
+        idx = np.sort(rng.integers(0, n_src, 20_000))
+    if np.issubdtype(dtype, np.integer):
+        info = np.iinfo(dtype)
+        src = rng.integers(info.min, info.max, n_src, dtype=dtype, endpoint=True)
+    else:
+        src = (rng.normal(size=n_src) * 1e6).astype(dtype)
+    return src, idx.astype(np.int32), offset
+
+
+def _gather_numpy(src, idx):
+    return np.where(idx >= 0, src[np.clip(idx, 0, src.shape[0] - 1)], 0).astype(src.dtype)
+
+
+@pytest.mark.parametrize("case", GATHER_EDGES)
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+def test_gather_kernel_edge_cases_equal_plain(dev, case, dtype):
+    src, idx, off = _gather_edge(case, dtype)
+    s_all, i_all = _on(dev, src), _on(dev, idx)
+    s, i = s_all[off:], i_all[off:]
+    assert i.data_ptr() % 16 == 4 * off  # the indices start off the boundary
+    before = ops.launch_counts()["clustered_gather"]
+    got = kgather.clustered_gather(s, i)
+    assert ops.launch_counts()["clustered_gather"] == before + (i.shape[0] > 0)
+    assert torch.equal(got, ref.clustered_gather(s, i))
+    np.testing.assert_array_equal(got.cpu().numpy(), _gather_numpy(src[off:], idx[off:]))
+
+
 @pytest.mark.parametrize("bins", [1, 256, khist.SMEM_BINS, khist.SMEM_BINS + 1, (1 << 18) + 1])
 def test_histogram_kernel_equals_plain(dev, bins):
     """Both branches (shared-memory counts up to SMEM_BINS bins, device

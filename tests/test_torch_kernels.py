@@ -20,6 +20,7 @@ from repro.core import hash_join as jhj  # noqa: E402
 from repro.core import primitives as jprim  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.gather import gather_windowed_pallas  # noqa: E402
 from repro.kernels.histogram import histogram_pallas  # noqa: E402
 from repro.kernels.merge_join import lower_bound_windowed_pallas  # noqa: E402
 from repro.kernels.hash_probe import (hash_probe_pallas, layout_probe_blocks,  # noqa: E402
@@ -31,6 +32,7 @@ from repro_torch.core import Table as TTable  # noqa: E402
 from repro_torch.core import groupby as tgb  # noqa: E402
 from repro_torch.core import hash_join as thj  # noqa: E402
 from repro_torch.core import primitives as tprim  # noqa: E402
+from repro_torch.kernels import gather as tgather  # noqa: E402
 from repro_torch.kernels import hash_probe as thp  # noqa: E402
 from repro_torch.kernels import histogram as thist  # noqa: E402
 from repro_torch.kernels import merge_join as tmj  # noqa: E402
@@ -38,8 +40,9 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import radix_partition as trp  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import segsum as tseg  # noqa: E402
-from test_torch_cuda import (PROBE_AGG_EDGES, RANK_CASES, _probe_agg_edge,  # noqa: E402
-                             _rank_case)
+from test_torch_cuda import (GATHER_DTYPES, GATHER_EDGES, LB_EDGES,  # noqa: E402
+                             PROBE_AGG_EDGES, RANK_CASES, _gather_edge, _gather_numpy,
+                             _lb_edge, _probe_agg_edge, _rank_case)
 
 
 def _t(a):
@@ -263,6 +266,43 @@ def test_clustered_gather_any_index():
     idx = np.array([-1, 0, 999, 1000, 5000, 3], np.int32)
     want = np.where(idx >= 0, src64[np.clip(idx, 0, 999)], 0)
     np.testing.assert_array_equal(tops.clustered_gather(_t(src64), _t(idx)).numpy(), want)
+
+
+# the Pallas kernels' geometry for the edge cases, interpreted on the CPU: a
+# 2W window of W rows, tiles of 256 (the port's smallest tile), and inputs
+# small enough to interpret. The lower bound's window holds the spans around
+# the port's ring of 8192 int32 keys; the gather's holds every source row of
+# the cases at most 5000 rows long, so that unclustered and clipped indices
+# fit it.
+EDGE_PALLAS = dict(window_rows=8192, tile=256)
+EDGE_GATHER_PALLAS = dict(window_rows=8192, tile=256)
+EDGE_PALLAS_MAX = 20_000
+
+
+@pytest.mark.parametrize("case", GATHER_EDGES)
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+def test_clustered_gather_edge_cases_match_pallas_kernel(case, dtype):
+    """The card tests' edge cases on the CPU: the plain version (the wrapper's
+    CPU arm) against numpy always, and against the Pallas kernel in interpret
+    mode where it takes the shape: 4-byte elements (the reference runs with
+    x64 off), at least one index, and every tile inside the window the
+    reference's auto arm picks for it."""
+    src, idx, off = _gather_edge(case, dtype)
+    src, idx = src[off:], idx[off:]
+    got = tops.clustered_gather(_t(src), _t(idx))
+    np.testing.assert_array_equal(got.numpy(), _gather_numpy(src, idx))
+    np.testing.assert_array_equal(tgather.clustered_gather(_t(src), _t(idx)).numpy(),
+                                  got.numpy())
+    w, tile = EDGE_GATHER_PALLAS["window_rows"], EDGE_GATHER_PALLAS["tile"]
+    safe = np.clip(idx, 0, src.shape[0] - 1)
+    win = safe[::tile] // w
+    padded = np.pad(safe, (0, -len(safe) % tile)).reshape(-1, tile)
+    fits = len(idx) > 0 and bool(((padded.max(1) < (win + 2) * w)
+                                  & (padded.min(1) >= win * w)).all())
+    if np.dtype(dtype).itemsize == 4 and fits and len(idx) <= EDGE_PALLAS_MAX:
+        want = gather_windowed_pallas(jnp.asarray(src), jnp.asarray(safe), jnp.asarray(win),
+                                      interpret=True, **EDGE_GATHER_PALLAS)
+        _eq(jnp.where(jnp.asarray(idx) >= 0, want, 0), got)
 
 
 # ---------------------------------------------------------------------------
@@ -571,6 +611,29 @@ def test_lower_bound_matches_pallas_kernel(case):
     _eq(jops.merge_lower_bound(jb, jp, "auto"), tops.merge_lower_bound(_t(build), _t(probe)))
     _eq(jref.upper_bound(jb, jp), tref.upper_bound(_t(build), _t(probe)))
     assert tops.merge_lower_bound(_t(build), _t(probe)).dtype == torch.int32
+
+
+@pytest.mark.parametrize("case", LB_EDGES)
+@pytest.mark.parametrize("key_dtype", [np.int32, np.int64])
+def test_lower_bound_edge_cases_match_pallas_kernel(case, key_dtype):
+    """The card tests' edge cases on the CPU: the plain version (the wrapper's
+    CPU arm) against numpy always, and against the Pallas kernel in interpret
+    mode where it takes the shape: int32 keys, a few tiles, and every bound
+    of a tile inside the 2W window the reference's auto arm picks (the lower
+    bound of the tile's first key, in units of W)."""
+    build, probe = _lb_edge(case, key_dtype)
+    got = tmj.lower_bound(_t(build), _t(probe))
+    want = np.searchsorted(build, probe, "left")
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(tref.lower_bound(_t(build), _t(probe)).numpy(), want)
+    w, tile = EDGE_PALLAS["window_rows"], EDGE_PALLAS["tile"]
+    win = want[::tile] // w
+    padded = np.pad(want, (0, -len(want) % tile), mode="edge").reshape(-1, tile)
+    fits = bool(((padded >= (win * w)[:, None]) & (padded <= ((win + 2) * w)[:, None])).all())
+    if key_dtype == np.int32 and fits and 0 < len(probe) <= EDGE_PALLAS_MAX and len(build):
+        _eq(lower_bound_windowed_pallas(jnp.asarray(build), jnp.asarray(probe),
+                                        jnp.asarray(win.astype(np.int32)), interpret=True,
+                                        **EDGE_PALLAS), got)
 
 
 @settings(max_examples=10, deadline=None)
