@@ -36,7 +36,8 @@
    (g) the radix sort plan (4 + 4 rank-pass launches per sort) on S's and
        R's keys, equal to the stable sort exactly;
    (h) the non-partitioned hash join (no kernel), equal to the numpy
-       reference per key, with no failed insertion.
+       reference per key, with no failed insertion, beside PHJ-OM alone
+       (with its phase times) and SMJ.
 6. Holds each kernel against its plain PyTorch version on the card, at the
    shapes these paths give it (keys, layouts and counts exactly equal, float
    sums to a stated tolerance), and times the kernel, the plain version and
@@ -44,9 +45,12 @@
    is one (median of CUDA-event timings), beside the least time the card
    could take. A kernel with a library call is also timed against it in 21
    alternating pairs (the median of each and the min-max of the per-pair
-   ratio). The rank kernel is also timed at the group-by's 257 bins and the
-   join plan's 8-bin last pass. The gather has a row for each of PHJ-OM's
-   two maps (build side, probe side), the lower bound a row for J2's sweep,
+   ratio). The per-tile histograms have a row for each of the join plan's
+   first pass (256 bins), the group-by's first pass (257) and the join
+   plan's last pass (8); the rank kernel is also timed at 257 and 8 bins.
+   The probe runs on the join's partitioned key columns. The gather has a
+   row for each of PHJ-OM's two maps (build side, probe side), the lower
+   bound a row for J2's sweep,
    for a short probe column whose tiles span far past its ring of build keys,
    and for int64 keys. (k) The global histogram is driven through
    its own entry point (`ops.histogram`) first; its full-fan-out counts must
@@ -326,11 +330,14 @@ def main() -> None:
         """One profiled warm run: device time by kernel and the idle share."""
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             _, wall = timed(torch, fn)
-        averages = prof.key_averages()
-        kernel_us = {e.key[:90]: e.self_device_time_total for e in averages
-                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
-        host_us = {e.key[:60]: e.self_cpu_time_total for e in averages
-                   if e.device_type == DeviceType.CPU}
+        # names are cut for the tables, and many kernels share a cut name:
+        # their times add up under it
+        kernel_us, host_us = {}, {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                kernel_us[e.key[:90]] = kernel_us.get(e.key[:90], 0) + e.self_device_time_total
+            elif e.device_type == DeviceType.CPU:
+                host_us[e.key[:60]] = host_us.get(e.key[:60], 0) + e.self_cpu_time_total
         busy_s = sum(kernel_us.values()) / 1e6
 
         def top(us):
@@ -531,6 +538,11 @@ def main() -> None:
     phj_launches = dict(NO_LAUNCHES, block_histograms=6, partition_ranks=6, hash_probe=1,
                         clustered_gather=4)
     (_, _), phj_info = run_path("j2_phj_om", lambda: join(R, S, algorithm="phj"), phj_launches)
+    # PHJ-OM's phases, warm, each edge a device synchronisation
+    phj_phases = {}
+    join(R, S, algorithm="phj", phases=phj_phases)
+    log(json.dumps({"j2_phj_om_phases_s": phj_phases,
+                    "warm_s_median_of_3": phj_info["warm_s_median_of_3"]}))
     nphj_stats = {}
     (Tn, cn), nphj_info = run_path(
         "j2_nphj", lambda: join(R, S, algorithm="nphj", stats=nphj_stats), NO_LAUNCHES)
@@ -542,7 +554,8 @@ def main() -> None:
     check(failed == 0, f"NPHJ: {failed} build keys found no slot")
     log(f"(h) NPHJ equal to numpy per key, 0 failed insertions into "
         f"{nphj_stats['table_size']} slots; joins "
-        f"warm (medians of 3): PHJ-OM {phj_info['warm_s_median_of_3']:.6f} s, SMJ-OM "
+        f"warm (medians of 3): PHJ-OM {phj_info['warm_s_median_of_3']:.6f} s (probe phase "
+        f"{phj_phases['probe']:.6f} s), SMJ-OM "
         f"{smj_info['warm_s_median_of_3']:.6f} s, SMJ-UM "
         f"{smj_um_info['warm_s_median_of_3']:.6f} s, NPHJ "
         f"{nphj_info['warm_s_median_of_3']:.6f} s")
@@ -595,13 +608,20 @@ def main() -> None:
     dig_s = hj._digits(S["k"], p_bits, True)
     pd = (dig_s & 255).contiguous()
     nb, tile = 256, krp.TILE
-    n_tiles = -(-n_s // tile)
     hist = krp.block_histograms(pd, nb)
-    flat = torch.arange(n_s, device=dev) // tile * nb + pd
-    record("block_histograms", [hist], [ref.block_histograms(pd, nb, tile)],
-           lambda: krp.block_histograms(pd, nb), lambda: ref.block_histograms(pd, nb, tile),
-           lambda: torch.bincount(flat, minlength=n_tiles * nb), 4 * n_s + 4 * n_tiles * nb)
-    del flat
+
+    def record_hist(d, bins, shape):
+        """block_histograms on digits d against its plain version; the library
+        call is one bincount of (tile, digit) pairs made beforehand."""
+        tiles = -(-d.shape[0] // tile)
+        flat = torch.arange(d.shape[0], device=dev) // tile * bins + d
+        record("block_histograms", [krp.block_histograms(d, bins)],
+               [ref.block_histograms(d, bins, tile)], lambda: krp.block_histograms(d, bins),
+               lambda: ref.block_histograms(d, bins, tile),
+               lambda: torch.bincount(flat, minlength=tiles * bins),
+               4 * d.shape[0] + 4 * tiles * bins, shape=shape)
+
+    record_hist(pd, nb, "256 bins: the join plan's first pass over S's digits")
     base, _, _ = krp.tile_base(hist)
     record("partition_ranks", [krp.rank_with_base(pd, base, nb)],
            [ref.partition_ranks(pd, nb)], lambda: krp.rank_with_base(pd, base, nb),
@@ -614,8 +634,8 @@ def main() -> None:
     gbits, _ = gb._partition_layout(tk.shape[0], gb.PARTITION_ROW_BLOCK, None)
     gdig = gb._partition_digits(tk, gbits)
     gd = torch.where(gdig == 1 << gbits, 256, gdig & 255).contiguous()
+    record_hist(gd, 257, "257 bins: the group-by's first pass over the join output")
     gh = krp.block_histograms(gd, 257)
-    check(torch.equal(gh, ref.block_histograms(gd, 257, tile)), "257-bin histograms differ")
     check(torch.equal(krp.rank_with_base(gd, krp.tile_base(gh)[0], 257),
                       ref.partition_ranks(gd, 257)), "257-bin ranks differ")
     gbase = krp.tile_base(gh)[0]
@@ -625,6 +645,7 @@ def main() -> None:
     # the join plan's narrow last pass: bits 16-18 of S's digits (8 bins), in
     # the order the two 8-bit passes before it leave
     nd = ((dig_s[torch.sort(dig_s & 0xFFFF, stable=True).indices] >> 16) & 7).int().contiguous()
+    record_hist(nd, 8, "8 bins: the join plan's last pass over S's digits")
     nbase = krp.tile_base(krp.block_histograms(nd, 8))[0]
     check(torch.equal(krp.rank_with_base(nd, nbase, 8), ref.partition_ranks(nd, 8)),
           "8-bin ranks differ")
@@ -632,42 +653,36 @@ def main() -> None:
         f"{cuda_ms(torch, lambda: krp.rank_with_base(nd, nbase, 8)):.6f} ms")
     del gdig, gd, gh, gbase, nd, nbase
 
-    # the probe and the gathers, on the join's own layout
+    # the probe and the gathers, on the join's own partitioned columns
     P = 1 << p_bits
+    cap = hj.BUILD_BLOCK
     dig_r = hj._digits(R["k"], p_bits, True)
     perm_r, off_r, sz_r = prim.plan_partition_permutation(dig_r, P + 1)
     perm_s, off_s, sz_s = prim.plan_partition_permutation(dig_s, P + 1)
     kr, ks = R["k"][perm_r], S["k"][perm_s]
-    bkeys, _, _ = hj.build_blocks(kr, off_r[:P], sz_r[:P], hj.BUILD_BLOCK)
-    cap = hj.BUILD_BLOCK
+    probe_args = tuple(t.contiguous() for t in (kr, off_r[:P], sz_r[:P], ks, off_s[:P],
+                                                sz_s[:P])) + (cap,)
+    vid, hit = kprobe.hash_probe(*probe_args)
+    # bytes the data needs: each probe key read and its vid (4 B) and hit
+    # (1 B) written once, each live build key and both sides' offsets and
+    # sizes read once; operations: one table insert per live build key and
+    # one lookup per probe row
+    live_build = int(sz_r[:P].clamp(max=cap).sum())
+    probe_bytes = 4 * n_s + (4 + 1) * n_s + 4 * live_build + 4 * 4 * P
+    log(f"hash_probe: {n_s} probe rows against {live_build} live build keys in {P} "
+        f"partitions; bytes={probe_bytes}")
+    record("hash_probe", [vid, hit], list(ref.hash_probe(*probe_args)),
+           lambda: kprobe.hash_probe(*probe_args), lambda: ref.hash_probe(*probe_args), None,
+           probe_bytes, live_build + n_s, plain_reps=3)
+    check(int(hit.sum()) == n_s, "the probe missed rows of a match-ratio-1 join")
+    del vid, hit
+
+    # the group-join's probe_agg on its padded layout: group key k, s1 from
+    # the probe side, r1 from the build side (as phj_groupjoin lays them out)
+    bkeys, _, _ = hj.build_blocks(kr, off_r[:P], sz_r[:P], cap)
     pk, part, src_idx = kprobe.layout_probe_blocks(ks, off_s[:P], sz_s[:P], cap,
                                                    -(-n_s // cap) + P)
-    offp = off_r[:P].contiguous()
-    vid, hit = kprobe.hash_probe(bkeys, offp, pk, part)
     B = pk.shape[0]
-
-    def probe_plain():
-        v, h = ref.hash_probe_blocks(bkeys, offp, pk.reshape(-1), part.repeat_interleave(cap))
-        return v.reshape(B, cap), h.reshape(B, cap)
-
-    # compares the data needs: up to the first hit, the whole block on a miss.
-    # Bytes the data needs: each probe key read and its vid and hit written
-    # once, each build key and partition offset read once. The padded layout
-    # the kernel is given moves more: every slot of every sub-block and of
-    # every build block.
-    slot = vid - offp[part][:, None]
-    nops = int(torch.where(hit.bool(), slot + 1, torch.where(pk != -1, cap, 0)).sum())
-    padded_bytes = 4 * (bkeys.numel() + P + pk.numel() + B + 2 * vid.numel())
-    log(f"hash_probe padded layout: {B} sub-blocks of {cap} slots, "
-        f"{int((pk != -1).sum())} probe keys; padded bytes={padded_bytes} "
-        f"bound {padded_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms")
-    record("hash_probe", [vid, hit], list(probe_plain()),
-           lambda: kprobe.hash_probe(bkeys, offp, pk, part), probe_plain, None,
-           4 * (3 * n_s + n_r + P), nops)
-    check(int(hit.sum()) == n_s, "the probe missed rows of a match-ratio-1 join")
-
-    # the group-join's probe_agg on the same layout: group key k, s1 from
-    # the probe side, r1 from the build side (as phj_groupjoin lays them out)
     pad = src_idx >= 0
     safe = src_idx.clamp(min=0)
     gkb = torch.where(pad, ks[safe], -1)
@@ -688,19 +703,20 @@ def main() -> None:
     # operations the data needs: one match lookup and one group lookup per
     # probe row, and one add per output column (the sums and the count) per
     # matched row
-    probe_rows, matched_rows = int((pk != -1).sum()), int(hit.sum())
+    probe_rows = int((pk != -1).sum())
+    matched_rows = int(agg_out[2].sum())
     lookups, adds = 2 * probe_rows, matched_rows * (len(sides) + 1)
     agg_ops = lookups + adds
     log(f"probe_agg: {live} live partials; padded layout bytes={agg_padded} bound "
         f"{agg_padded / HBM_BYTES_PER_S * 1e3:.6f} ms; lookups {lookups}, adds {adds}")
     record("probe_agg", list(agg_out), list(agg_plain), lambda: kprobe.probe_agg(*agg_args),
            lambda: ref.probe_agg_blocks(*agg_args), None, agg_bytes, agg_ops, plain_reps=3)
-    del pk, part, vid, hit, slot, agg_out, agg_plain, agg_args, gkb, pvb, bvb
+    del pk, part, agg_out, agg_plain, agg_args, gkb, pvb, bvb, bkeys
 
     # PHJ-OM's gathers, as phj_join maps them: r1 from the partitioned build
     # side through id_r (clustered within partitions), s1 from the
     # partitioned probe side through id_s (perfectly clustered)
-    vid_r, matched = ops.hash_probe(bkeys, off_r[:P], ks, off_s[:P], sz_s[:P], "cuda")
+    vid_r, matched = ops.hash_probe(*probe_args, "cuda")
     vid_s = torch.arange(n_s, dtype=torch.int32, device=dev)
     (_, vr, vs), c = prim.compact(matched, [ks, vid_r, vid_s], n_s, fill=-1)
     valid = torch.arange(n_s, device=dev) < c
@@ -789,8 +805,8 @@ def main() -> None:
     clock.done("6 kernels")
 
     # -- 7. free J2 ---------------------------------------------------------
-    del R, S, dig_s, pd, h256, hfull, perm_r, off_r, sz_r, perm_s, off_s, sz_s, kr, ks, bkeys
-    del offp, dig_r, pad, _
+    del R, S, dig_s, pd, h256, hfull, perm_r, off_r, sz_r, perm_s, off_s, sz_s, kr, ks
+    del probe_args, dig_r, pad, _
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"J2 freed: {torch.cuda.memory_allocated()} bytes still allocated")

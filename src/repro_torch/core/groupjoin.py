@@ -110,7 +110,6 @@ def phj_groupjoin(
 
     kr = prim.apply_permutation(perm_r, R[key])
     ks = prim.apply_permutation(perm_s, S[key])
-    bkeys, _, _ = build_blocks(kr, off_r, sz_r, build_block)
 
     # Probe-side columns reach partitioned order by one planned-permutation
     # gather each, on demand, shared between the group key and an aggregate
@@ -124,12 +123,14 @@ def phj_groupjoin(
 
     gk = probe_col(group_key)
     if impl == "cuda":
+        bkeys, _, _ = build_blocks(kr, off_r, sz_r, build_block)
         return _groupjoin_cuda(R, S, aggs, num_groups, bkeys, off_r, sz_r, perm_r, probe_col,
                                ks, gk, off_s, sz_s, group_key)
 
     # vid_r is -1 where nothing matched (the reference's plain probe gives
     # off_r[part] there): every fetch below is masked by `matched` either way
-    vid_r, matched = kops.hash_probe(bkeys, off_r, ks, off_s, sz_s, impl="torch")
+    vid_r, matched = kops.hash_probe(kr, off_r, sz_r, ks, off_s, sz_s, build_block,
+                                     impl="torch")
     gk_masked = torch.where(matched, gk, KEY_SENTINEL)
 
     # Per-row aggregate inputs in partitioned probe order: the rows the

@@ -1,9 +1,10 @@
 """Partitioned hash join: PHJ-UM (GFUR, §3.2) and PHJ-OM (GFTR, §4.3).
 
 Both sides are stably radix-partitioned on hashed key bits into contiguous
-arrays (one plan per side; every column costs one gather). Each build
-partition is padded to a `build_block` block, the paper's shared-memory hash
-table, and the probe keys of the co-partition are matched against it. The
+arrays (one plan per side; every column costs one gather). The first
+`build_block` rows of each build partition form the paper's shared-memory
+hash table, and the probe keys of the co-partition are matched against it
+(`kops.hash_probe`, which reads both partitioned key columns directly). The
 layout comes from prefix-sum ranks, never from atomics, so partitioning
 (key, col_1) and (key, col_2) gives the same layout: the GFTR requirement.
 
@@ -45,7 +46,7 @@ def hash32(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-# default padded-block capacity per build partition
+# default build block: the rows of a build partition that can match
 BUILD_BLOCK = 256
 
 
@@ -109,8 +110,9 @@ def phj_join(
     """End-to-end partitioned hash join. Returns (Table, valid_count), with
     valid_count a 0-d int32 tensor.
 
-    Build partitions are padded to `build_block`; a partition that would
-    overflow drops matches, which `phj_overflowed` checks beforehand.
+    Only the first `build_block` rows of a build partition can match; a
+    partition that would overflow drops matches, which `phj_overflowed`
+    checks beforehand.
     `phases`, when given, receives the wall seconds of each phase (plans,
     probe, compact, gathers), measured with a device synchronisation at each
     phase edge."""
@@ -139,11 +141,10 @@ def phj_join(
     with phase(phases, "probe", dev):
         kr = prim.apply_permutation(perm_r, R[key])
         ks = prim.apply_permutation(perm_s, S[key])
-        bkeys, _, _ = build_blocks(kr, off_r[:P], sz_r[:P], build_block)
         # vid_r is -1 where nothing matched (the reference's plain arm gives
         # off_r[part] there); `compact` drops those rows either way
-        vid_r, matched = kops.hash_probe(bkeys, off_r[:P], ks, off_s[:P], sz_s[:P],
-                                         probe_impl)
+        vid_r, matched = kops.hash_probe(kr, off_r[:P], sz_r[:P], ks, off_s[:P], sz_s[:P],
+                                         build_block, probe_impl)
 
     with phase(phases, "compact", dev):
         vid_s = torch.arange(ks.shape[0], dtype=torch.int32, device=dev)
@@ -177,7 +178,7 @@ def phj_join(
 
 def phj_overflowed(R: Table, *, key: str = "k", build_block: int = BUILD_BLOCK,
                    partition_bits: int | None = None, hash_keys: bool = True):
-    """Host-side check: would any build partition exceed the padded block?
+    """Host-side check: would any build partition exceed the build block?
     Returns (overflowed, p_bits). The sentinel partition P may overflow: it
     never gets a block."""
     p_bits = (partition_bits if partition_bits is not None

@@ -137,19 +137,11 @@ template <typename T, bool VEC_IDX>
 static int launch(const void* src, const void* idx, long long n_src, long long n, long long head,
                   void* out, cudaStream_t stream) {
   auto kernel = clustered_gather_kernel<T, VEC_IDX>;
-  // the grid that fills the card, found once per kernel
-  static long long fill = 0;
-  if (fill == 0) {
-    int device = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    fill = static_cast<long long>(sms) * per_sm;
-  }
+  // the grid that fills the card, found once per kernel and card
+  static long long cache[MAX_DEVICES] = {};
+  long long fill = 0;
+  const cudaError_t err = grid_fill(kernel, THREADS, 0, cache, &fill);
+  if (err != cudaSuccess) return static_cast<int>(err);
   // enough threads for the warp steps and for the scalar head and tail
   const long long need = std::max(((n - head) / STEP * 32 + THREADS - 1) / THREADS,
                                   static_cast<long long>(STEP + THREADS - 1) / THREADS);
@@ -176,7 +168,9 @@ static int launch_aligned(const void* src, const void* idx, long long n_src, lon
 
 // elem_bytes is 4 or 8; idx is int32; src has n_src >= 1 elements; n >= 1.
 extern "C" int clustered_gather(const void* src, const void* idx, long long n_src, long long n,
-                                int elem_bytes, void* out, void* stream) {
+                                int elem_bytes, void* out, void* stream, int device) {
+  DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
   auto s = static_cast<cudaStream_t>(stream);
   if (elem_bytes == 8) return launch_aligned<unsigned long long>(src, idx, n_src, n, out, s);
   if (elem_bytes == 4) return launch_aligned<unsigned>(src, idx, n_src, n, out, s);

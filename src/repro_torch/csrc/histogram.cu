@@ -63,13 +63,13 @@ histogram_kernel(const int* __restrict__ digits, long long n, int head, int num_
 }
 
 // digits (n,) int32, n >= 1 -> out (num_bins,) int32, zeroed by the caller.
-extern "C" int histogram(const void* digits, long long n, int num_bins, void* out, void* stream) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+extern "C" int histogram(const void* digits, long long n, int num_bins, void* out, void* stream,
+                         int device) {
+  DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
+  int sms = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int* d = static_cast<const int*>(digits);
   // digits before the first 16-byte boundary are counted one by one
   const int head = static_cast<int>(

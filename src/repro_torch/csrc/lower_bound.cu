@@ -423,21 +423,12 @@ static int launch(const K* build, int n_build, const K* probe, long long n_probe
   constexpr int TILE = THREADS * PER;
   const size_t smem = RING_BYTES + 2 * TILE * sizeof(K);
   auto kernel = lower_bound_kernel<K, PER>;
-  // the grid that fills the card, found once per kernel
-  static long long fill = 0;
-  if (fill == 0) {
-    int device = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err == cudaSuccess) err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    fill = static_cast<long long>(sms) * per_sm;
-  }
+  // the grid that fills the card, found (and the kernel's shared-memory
+  // limit raised) once per kernel and card
+  static long long cache[MAX_DEVICES] = {};
+  long long fill = 0;
+  const cudaError_t err = grid_fill(kernel, THREADS, smem, cache, &fill);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = (n_probe + TILE - 1) / TILE;
   const long long blocks = tiles < fill ? tiles : fill;
   const bool aligned = reinterpret_cast<size_t>(probe) % 16 == 0;
@@ -451,14 +442,11 @@ static int launch(const K* build, int n_build, const K* probe, long long n_probe
 template <typename K>
 static int launch_keys(const void* build, int n_build, const void* probe, long long n_probe,
                        void* out, cudaStream_t stream) {
-  static int sms = 0;
-  if (sms == 0) {
-    int device = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const K* b = static_cast<const K*>(build);
   const K* p = static_cast<const K*>(probe);
   int* o = static_cast<int*>(out);
@@ -473,7 +461,9 @@ static int launch_keys(const void* build, int n_build, const void* probe, long l
 // (key_bytes 4 or 8), build sorted ascending; n_build < 2^31, n_probe >= 1
 // -> out (n_probe,) int32, 16-byte aligned.
 extern "C" int lower_bound(const void* build, int n_build, const void* probe, long long n_probe,
-                           int key_bytes, void* out, void* stream) {
+                           int key_bytes, void* out, void* stream, int device) {
+  DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (key_bytes == 8) return launch_keys<long long>(build, n_build, probe, n_probe, out, st);
   return launch_keys<int>(build, n_build, probe, n_probe, out, st);

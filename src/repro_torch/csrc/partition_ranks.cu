@@ -136,7 +136,10 @@ __global__ void __launch_bounds__(WARPS * 32)
 
 // base: (ceil(n / tile), num_bins) int32; dest: (n,) int32.
 extern "C" int partition_ranks(const void* digits, const void* base, long long n,
-                               int num_bins, int tile, void* dest, void* stream) {
+                               int num_bins, int tile, void* dest, void* stream,
+                               int device) {
+  DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
   const size_t smem = static_cast<size_t>(WARPS) * warp_words(num_bins, tile) * sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(partition_ranks_kernel,
@@ -144,10 +147,8 @@ extern "C" int partition_ranks(const void* digits, const void* base, long long n
                                                  static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, partition_ranks_kernel,
                                                         WARPS * 32, smem);

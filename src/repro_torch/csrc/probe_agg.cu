@@ -376,7 +376,9 @@ extern "C" int probe_agg(const void* bkeys, const void* bvals, const void* probe
                          const void* pv, const void* block_part, const void* col_src,
                          long long num_blocks, int num_parts, int cap_r, int cap_s, int cb,
                          int cp, int c, int key_bytes, void* pk, void* ps, void* pc,
-                         void* stream) {
+                         void* stream, int device) {
+  DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (key_bytes == 8)
     return launch_rows<long long>(bkeys, bvals, probe, gk, pv, block_part, col_src, num_blocks,

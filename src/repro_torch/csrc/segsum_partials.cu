@@ -84,7 +84,10 @@ static int launch(const void* keys, const void* vals, long long n, int tile, voi
 // tile <= 1024 -> pk, ps, pc of ceil(n / tile) * tile slots: keys of the keys'
 // type, float32 sums, int32 counts.
 extern "C" int segsum_partials(const void* keys, const void* vals, long long n, int tile,
-                               int key_bytes, void* pk, void* ps, void* pc, void* stream) {
+                               int key_bytes, void* pk, void* ps, void* pc, void* stream,
+                               int device) {
+  DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (key_bytes == 8) return launch<long long>(keys, vals, n, tile, pk, ps, pc, st);
   return launch<int>(keys, vals, n, tile, pk, ps, pc, st);

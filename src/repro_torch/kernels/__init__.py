@@ -6,8 +6,9 @@ versions, for the paper's hot spots on the join and group-by path:
                    composed into the sort-free multi-pass partition and
                    sort planners
   merge_join       lower bounds of sorted probe keys (SMJ match finding)
-  hash_probe       co-partition probe (build block staged in shared memory),
-                   and the group-join's fused probe + tile-local aggregate
+  hash_probe       co-partition probe over the partitioned key columns (each
+                   partition's build keys in a shared-memory hash table), and
+                   the group-join's fused probe + tile-local aggregate
   gather           GFTR clustered gather of 4- and 8-byte elements
   segsum           per-tile partial sums over key-sorted rows (sort group-by)
 

@@ -6,8 +6,9 @@ root of the checkout, then loaded with ctypes. The hash covers the source,
 the shared header and the flags, so a library is rebuilt only when one of
 them changes. `build_all` starts one nvcc per source, all at once.
 
-Every C entry point launches on the stream it is given and returns
-`cudaGetLastError()`; `check` raises when that is not 0.
+Every C entry point launches on the card and stream it is given (the card
+that holds its tensors and PyTorch's current stream there, `launch_on`) and
+returns `cudaGetLastError()`; `check` raises when that is not 0.
 """
 from __future__ import annotations
 
@@ -28,17 +29,18 @@ SOURCES = ("block_histograms", "partition_ranks", "hash_probe", "clustered_gathe
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# argtypes of each C entry point, by library
+# argtypes of each C entry point, by library; each ends with the stream and
+# the card (`launch_on`)
 SIGNATURES = {
-    "block_histograms": {"block_histograms": (_P, _L, _I, _I, _P, _P)},
-    "partition_ranks": {"partition_ranks": (_P, _P, _L, _I, _I, _P, _P)},
-    "hash_probe": {"hash_probe": (_P, _P, _P, _P, _L, _I, _I, _I, _P, _P, _P)},
-    "clustered_gather": {"clustered_gather": (_P, _P, _L, _L, _I, _P, _P)},
+    "block_histograms": {"block_histograms": (_P, _L, _I, _I, _P, _P, _I)},
+    "partition_ranks": {"partition_ranks": (_P, _P, _L, _I, _I, _P, _P, _I)},
+    "hash_probe": {"hash_probe": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _P, _P, _P, _I)},
+    "clustered_gather": {"clustered_gather": (_P, _P, _L, _L, _I, _P, _P, _I)},
     "probe_agg": {"probe_agg": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
-                                _P, _P, _P, _P)},
-    "segsum_partials": {"segsum_partials": (_P, _P, _L, _I, _I, _P, _P, _P, _P)},
-    "lower_bound": {"lower_bound": (_P, _I, _P, _L, _I, _P, _P)},
-    "histogram": {"histogram": (_P, _L, _I, _P, _P)},
+                                _P, _P, _P, _P, _I)},
+    "segsum_partials": {"segsum_partials": (_P, _P, _L, _I, _I, _P, _P, _P, _P, _I)},
+    "lower_bound": {"lower_bound": (_P, _I, _P, _L, _I, _P, _P, _I)},
+    "histogram": {"histogram": (_P, _L, _I, _P, _P, _I)},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -105,13 +107,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def raw_stream(t) -> int:
-    """The handle of PyTorch's current stream on t's card, without building a
+def launch_on(t) -> tuple[int, int]:
+    """(stream, card) for a C entry point: the handle of PyTorch's current
+    stream on t's card, and that card's ordinal, which the entry point makes
+    current for its launch. The handle is read without building a
     `torch.cuda.Stream` (a few microseconds a launch, which short kernels
     feel)."""
     import torch
 
-    return torch._C._cuda_getCurrentRawStream(t.get_device())
+    device = t.get_device()
+    return torch._C._cuda_getCurrentRawStream(device), device
 
 
 def check(lib: ctypes.CDLL, name: str, err: int) -> None:

@@ -35,7 +35,7 @@ def clustered_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     lib = _build.load("clustered_gather")
     err = lib.clustered_gather(src.data_ptr(), idx.data_ptr(), src.shape[0], idx.shape[0],
                                src.element_size(), out.data_ptr(),
-                               _build.raw_stream(src))
+                               *_build.launch_on(src))
     _build.check(lib, "clustered_gather", err)
     LAUNCHES["clustered_gather"] += 1
     return out

@@ -1,12 +1,15 @@
 """Co-partition hash probe (PHJ match finding) and the group-join's fused
 probe + aggregate.
 
-Probe rows are laid out partition-major in capS-wide sub-blocks, each of
-which belongs to exactly one partition (`layout_probe_blocks`, the paper's
-probe-side sub-partitioning). Both kernels stage that partition's padded
-build block (capR keys) in shared memory and find each probe key's first
-match in it; `probe_agg` then folds the matched rows of the sub-block into
-one partial per distinct group key instead of writing a match per row.
+`hash_probe` reads the partitioned build and probe columns directly, by the
+partitions' offsets and sizes: a group of threads stages a partition's
+build keys in a shared-memory hash table and streams its probe rows past it.
+`probe_agg` reads probe rows laid out partition-major in capS-wide
+sub-blocks, each of which belongs to exactly one partition
+(`layout_probe_blocks`, the paper's probe-side sub-partitioning), against
+each partition's padded build block (capR keys), and folds the matched rows
+of a sub-block into one partial per distinct group key instead of writing a
+match per row.
 """
 from __future__ import annotations
 
@@ -15,37 +18,48 @@ import torch
 from . import _build, ref
 from .common import KEY_SENTINEL, LAUNCHES, SMEM_PER_BLOCK, ceil_div
 
+# the widest build block the probe kernel's table takes (csrc/hash_probe.cu)
+MAX_BUILD_BLOCK = 12288
 
-def hash_probe(bkeys: torch.Tensor, off_r: torch.Tensor, probe_blocks: torch.Tensor,
-               block_part: torch.Tensor):
-    """(vid, hit): (B, capS) int32 match position in the partitioned build
-    array (or -1) and 0/1 hit flags, for bkeys (P, capR), off_r (P,),
-    probe_blocks (B, capS) and block_part (B,), all int32."""
-    B, cap_s = probe_blocks.shape
-    P, cap_r = bkeys.shape
-    if not probe_blocks.is_cuda:
-        part = block_part.repeat_interleave(cap_s)
-        vid, hit = ref.hash_probe_blocks(bkeys, off_r, probe_blocks.reshape(-1), part)
-        return vid.reshape(B, cap_s), hit.reshape(B, cap_s)
-    for name, t in (("bkeys", bkeys), ("off_r", off_r), ("probe_blocks", probe_blocks),
-                    ("block_part", block_part)):
-        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != probe_blocks.device:
-            raise TypeError(f"{name} must be a contiguous int32 tensor on "
-                            f"{probe_blocks.device}, got {t.dtype} on {t.device}")
-    if off_r.shape != (P,) or block_part.shape != (B,):
-        raise ValueError(f"off_r must be ({P},) and block_part ({B},), got "
-                         f"{tuple(off_r.shape)} and {tuple(block_part.shape)}")
-    if not 1 <= cap_r <= 12288:
-        raise ValueError(f"build block of {cap_r} keys does not fit shared memory")
-    vid = torch.empty((B, cap_s), dtype=torch.int32, device=probe_blocks.device)
-    hit = torch.empty_like(vid)
-    if B == 0 or cap_s == 0:
+
+def hash_probe(build_keys: torch.Tensor, off_r: torch.Tensor, sz_r: torch.Tensor,
+               probe_keys: torch.Tensor, probe_off: torch.Tensor, probe_sz: torch.Tensor,
+               build_block: int):
+    """(vid (n,) int32, hit (n,) bool) for the partitioned probe keys: the
+    position off_r[p] + s of the first of the first min(sz_r[p],
+    build_block) build rows of the row's partition p whose key equals it,
+    or -1 and False. KEY_SENTINEL keys never match; rows in no partition
+    (past probe_off[P - 1] + probe_sz[P - 1]) miss. Partitions lie in row
+    order and do not overlap, as a partition plan leaves them. All tensors
+    int32; the plain version (`ref.hash_probe`) for CPU tensors."""
+    if not probe_keys.is_cuda:
+        return ref.hash_probe(build_keys, off_r, sz_r, probe_keys, probe_off, probe_sz,
+                              build_block)
+    dev = probe_keys.device
+    tensors = (("build_keys", build_keys), ("off_r", off_r), ("sz_r", sz_r),
+               ("probe_keys", probe_keys), ("probe_off", probe_off), ("probe_sz", probe_sz))
+    for name, t in tensors:
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous() or t.device != dev:
+            raise TypeError(f"{name} must be a contiguous 1-D int32 tensor on {dev}, got "
+                            f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    P = off_r.shape[0]
+    if P < 1 or any(t.shape[0] != P for t in (sz_r, probe_off, probe_sz)):
+        raise ValueError(f"off_r, sz_r, probe_off and probe_sz must have one entry per "
+                         f"partition (at least one), got {off_r.shape[0]}, {sz_r.shape[0]}, "
+                         f"{probe_off.shape[0]} and {probe_sz.shape[0]}")
+    if not 1 <= build_block <= MAX_BUILD_BLOCK:
+        raise ValueError(f"build blocks of 1 to {MAX_BUILD_BLOCK} keys fit the kernel's table, "
+                         f"got {build_block}")
+    n = probe_keys.shape[0]
+    vid = torch.empty(n, dtype=torch.int32, device=dev)
+    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
         return vid, hit
     lib = _build.load("hash_probe")
-    err = lib.hash_probe(bkeys.data_ptr(), off_r.data_ptr(), probe_blocks.data_ptr(),
-                         block_part.data_ptr(), B, P, cap_r, cap_s, vid.data_ptr(),
-                         hit.data_ptr(),
-                         _build.raw_stream(probe_blocks))
+    err = lib.hash_probe(build_keys.data_ptr(), off_r.data_ptr(), sz_r.data_ptr(),
+                         probe_keys.data_ptr(), probe_off.data_ptr(), probe_sz.data_ptr(), P, n,
+                         build_block, vid.data_ptr(), hit.data_ptr(),
+                         *_build.launch_on(probe_keys))
     _build.check(lib, "hash_probe", err)
     LAUNCHES["hash_probe"] += 1
     return vid, hit
@@ -134,7 +148,7 @@ def probe_agg(bkeys: torch.Tensor, bvals: torch.Tensor, probe_blocks: torch.Tens
                         gk_blocks.data_ptr(), pv_blocks.data_ptr(), block_part.data_ptr(),
                         col_src.data_ptr(), B, P, cap_r, cap_s, Cb, Cp, C,
                         gk_blocks.element_size(), pk.data_ptr(), ps.data_ptr(), pc.data_ptr(),
-                        _build.raw_stream(pk))
+                        *_build.launch_on(pk))
     _build.check(lib, "probe_agg", err)
     LAUNCHES["probe_agg"] += 1
     return pk, ps, pc

@@ -31,7 +31,7 @@ def histogram(digits: torch.Tensor, num_bins: int) -> torch.Tensor:
         return out
     lib = _build.load("histogram")
     err = lib.histogram(digits.data_ptr(), digits.shape[0], num_bins, out.data_ptr(),
-                        _build.raw_stream(digits))
+                        *_build.launch_on(digits))
     _build.check(lib, "histogram", err)
     LAUNCHES["histogram"] += 1
     return out

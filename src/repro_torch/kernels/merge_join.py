@@ -44,7 +44,7 @@ def lower_bound(build_sorted: torch.Tensor, probe: torch.Tensor) -> torch.Tensor
         return out
     lib = _build.load("lower_bound")
     err = lib.lower_bound(b.data_ptr(), n_b, p.data_ptr(), p.shape[0], p.element_size(),
-                          out.data_ptr(), _build.raw_stream(p))
+                          out.data_ptr(), *_build.launch_on(p))
     _build.check(lib, "lower_bound", err)
     LAUNCHES["lower_bound"] += 1
     return out

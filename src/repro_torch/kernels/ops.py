@@ -122,32 +122,22 @@ def merge_lower_bound(build_sorted: torch.Tensor, probe_sorted: torch.Tensor,
 # ---------------------------------------------------------------------------
 # hash probe
 # ---------------------------------------------------------------------------
-def hash_probe(bkeys: torch.Tensor, off_r: torch.Tensor, probe_keys_part: torch.Tensor,
-               probe_off: torch.Tensor, probe_sz: torch.Tensor, impl: str | None = None):
-    """Co-partition PK-FK probe over a partitioned probe side. Returns
-    (vid_r, matched) aligned with probe_keys_part order; vid_r is -1 where
-    nothing matched. impl='torch' is the chunked row-by-row compare
-    (`ref.probe_pk_fk`); impl='cuda' lays the rows out in sub-blocks, runs
-    the kernel and scatters its results back."""
+def hash_probe(build_keys_part: torch.Tensor, off_r: torch.Tensor, sz_r: torch.Tensor,
+               probe_keys_part: torch.Tensor, probe_off: torch.Tensor, probe_sz: torch.Tensor,
+               build_block: int, impl: str | None = None):
+    """Co-partition PK-FK probe over the partitioned build and probe
+    columns. Returns (vid_r int32, matched bool) in partitioned probe order:
+    vid_r is the position in build_keys_part of the first of the first
+    min(sz_r[p], build_block) build rows of the row's partition with an
+    equal key, or -1. It answers to the reference's `ops.hash_probe` with
+    bkeys = `build_blocks(build_keys_part, off_r, sz_r, build_block)`.
+    impl='cuda': one launch of the probe kernel, which reads the columns
+    directly; 'torch': its plain version (`ref.hash_probe`)."""
     impl = resolve_impl(impl, probe_keys_part)
+    args = (build_keys_part, off_r, sz_r, probe_keys_part, probe_off, probe_sz, build_block)
     if impl == "torch":
-        vid, hit = ref.probe_pk_fk(bkeys, off_r, probe_keys_part, probe_off)
-        return vid, hit.bool()
-    P, cap_r = bkeys.shape
-    n = probe_keys_part.shape[0]
-    cap_s = cap_r
-    max_blocks = ceil_div(n, cap_s) + P
-    pk, part, src_idx = layout_probe_blocks(probe_keys_part, probe_off, probe_sz, cap_s,
-                                            max_blocks)
-    vid, hit = _hash_probe_kernel(bkeys.contiguous(), off_r.contiguous(), pk, part)
-    # scatter the sub-block results back to partitioned probe order; pad
-    # slots all land on the extra row n, which is cut off
-    dst = torch.where(src_idx >= 0, src_idx, n).reshape(-1)
-    vid_out = torch.full((n + 1,), -1, dtype=torch.int32, device=vid.device)
-    vid_out[dst] = vid.reshape(-1)
-    hit_out = torch.zeros((n + 1,), dtype=torch.int32, device=vid.device)
-    hit_out[dst] = hit.reshape(-1)
-    return vid_out[:n], hit_out[:n].bool()
+        return ref.hash_probe(*args)
+    return _hash_probe_kernel(*(a.contiguous() for a in args[:-1]), build_block)
 
 
 # ---------------------------------------------------------------------------

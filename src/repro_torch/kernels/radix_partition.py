@@ -60,7 +60,7 @@ def block_histograms(digits: torch.Tensor, num_bins: int, *, tile: int = TILE) -
         return out
     lib = _build.load("block_histograms")
     err = lib.block_histograms(digits.data_ptr(), n, num_bins, tile, out.data_ptr(),
-                               _build.raw_stream(digits))
+                               *_build.launch_on(digits))
     _build.check(lib, "block_histograms", err)
     LAUNCHES["block_histograms"] += 1
     return out
@@ -100,7 +100,7 @@ def rank_with_base(digits: torch.Tensor, base: torch.Tensor, num_bins: int, *,
     lib = _build.load("partition_ranks")
     err = lib.partition_ranks(digits.data_ptr(), base.data_ptr(), n, num_bins, tile,
                               dest.data_ptr(),
-                              _build.raw_stream(digits))
+                              *_build.launch_on(digits))
     _build.check(lib, "partition_ranks", err)
     LAUNCHES["partition_ranks"] += 1
     return dest

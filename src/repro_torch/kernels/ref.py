@@ -79,17 +79,31 @@ def hash_probe_blocks(bkeys: torch.Tensor, off_r: torch.Tensor, probe_keys: torc
     return torch.cat(vids), torch.cat(hits)
 
 
-def probe_pk_fk(bkeys: torch.Tensor, off_r: torch.Tensor, probe_keys_part: torch.Tensor,
-                probe_off: torch.Tensor, chunk: int = 1 << 16):
-    """The pk_fk probe on a partitioned probe side: each row's partition
-    comes from the layout (probe_off), then `hash_probe_blocks`. Rows past
-    the last real partition (the sentinel partition's overhang) map to P - 1;
-    their keys are KEY_SENTINEL, so they never match."""
-    row = torch.arange(probe_keys_part.shape[0], dtype=torch.int32,
-                       device=probe_keys_part.device)
-    part = (torch.searchsorted(probe_off, row, right=True, out_int32=True) - 1
-            ).clamp(0, bkeys.shape[0] - 1)
-    return hash_probe_blocks(bkeys, off_r, probe_keys_part, part, chunk)
+def hash_probe(build_keys: torch.Tensor, off_r: torch.Tensor, sz_r: torch.Tensor,
+               probe_keys: torch.Tensor, probe_off: torch.Tensor, probe_sz: torch.Tensor,
+               cap: int, chunk: int = 1 << 16):
+    """The co-partition probe over the partitioned columns
+    (kernels/hash_probe.hash_probe): each partition's first min(sz_r, cap)
+    build keys padded to a (P, cap) block with KEY_SENTINEL, each probe
+    row's partition found from the layout (the last p with probe_off[p] <=
+    row), its key masked to KEY_SENTINEL where the row lies past its
+    partition's end, then `hash_probe_blocks`. Returns (vid int32, hit
+    bool)."""
+    P = off_r.shape[0]
+    dev = probe_keys.device
+    slot = torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
+    live = slot < sz_r[:, None]
+    if build_keys.shape[0]:
+        idx = (off_r[:, None] + slot).clamp(0, build_keys.shape[0] - 1)
+        bkeys = torch.where(live, build_keys[idx], KEY_SENTINEL)
+    else:
+        bkeys = torch.full((P, cap), KEY_SENTINEL, dtype=torch.int32, device=dev)
+    row = torch.arange(probe_keys.shape[0], dtype=torch.int32, device=dev)
+    part = (torch.searchsorted(probe_off, row, right=True, out_int32=True) - 1).clamp(0, P - 1)
+    inside = (row >= probe_off[part]) & (row < probe_off[part] + probe_sz[part])
+    vid, hit = hash_probe_blocks(bkeys, off_r, torch.where(inside, probe_keys, KEY_SENTINEL),
+                                 part, chunk)
+    return vid, hit.bool()
 
 
 def clustered_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

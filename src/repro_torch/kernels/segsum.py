@@ -43,7 +43,7 @@ def segsum_partials(sorted_keys: torch.Tensor, values: torch.Tensor, tile: int =
     lib = _build.load("segsum_partials")
     err = lib.segsum_partials(sorted_keys.data_ptr(), values.data_ptr(), n, tile,
                               sorted_keys.element_size(), pk.data_ptr(), ps.data_ptr(),
-                              pc.data_ptr(), _build.raw_stream(pk))
+                              pc.data_ptr(), *_build.launch_on(pk))
     _build.check(lib, "segsum_partials", err)
     LAUNCHES["segsum_partials"] += 1
     return pk, ps, pc

@@ -61,28 +61,177 @@ def test_partition_plan_kernel_arm_equals_sort_arm(dev, num_partitions):
         assert torch.equal(x, y)
 
 
-def test_probe_kernel_equals_plain(dev):
-    rng = np.random.default_rng(2)
-    p_bits, cap = 8, thj.BUILD_BLOCK
+def _probe_sides(dev, p_bits, n_r, n_s, seed, key_range=200_000):
+    """Build and probe sides of a pk_fk join, partitioned by the card's
+    plans: (kr, off_r, sz_r, ks, off_s, sz_s) for the P = 2^p_bits real
+    partitions; an eighth of the probe keys are sentinels."""
+    rng = np.random.default_rng(seed)
     P = 1 << p_bits
-    rkeys = _on(dev, rng.permutation(200_000)[:20_000].astype(np.int32))
-    skeys = rng.integers(0, 200_000, 80_000).astype(np.int32)
-    skeys[::13] = -1
+    rkeys = _on(dev, rng.permutation(key_range)[:n_r].astype(np.int32))
+    skeys = rng.integers(0, key_range, n_s).astype(np.int32)
+    skeys[::8] = -1
     skeys = _on(dev, skeys)
     perm_r, _, off_r, sz_r = ops.partition_plan(thj._digits(rkeys, p_bits, True), P + 1)
     perm_s, _, off_s, sz_s = ops.partition_plan(thj._digits(skeys, p_bits, True), P + 1)
-    kr, ks = rkeys[perm_r], skeys[perm_s]
-    bkeys, _, overflow = thj.build_blocks(kr, off_r[:P], sz_r[:P], cap)
-    assert not bool(overflow)
-    for x, y in zip(ops.hash_probe(bkeys, off_r[:P], ks, off_s[:P], sz_s[:P], "cuda"),
-                    ops.hash_probe(bkeys, off_r[:P], ks, off_s[:P], sz_s[:P], "torch")):
+    return rkeys[perm_r], off_r[:P], sz_r[:P], skeys[perm_s], off_s[:P], sz_s[:P]
+
+
+def test_probe_kernel_equals_plain(dev):
+    """The kernel on a planned join's partitioned columns against its plain
+    version and the padded-block reference (`ref.hash_probe_blocks` over
+    `build_blocks` and the per-row partitions), exactly; one launch a call."""
+    cap = thj.BUILD_BLOCK
+    kr, off_r, sz_r, ks, off_s, sz_s = _probe_sides(dev, 8, 20_000, 80_000, 2)
+    assert int(sz_r.max()) <= cap
+    before = ops.launch_counts()["hash_probe"]
+    got = ops.hash_probe(kr, off_r, sz_r, ks, off_s, sz_s, cap, "cuda")
+    assert ops.launch_counts()["hash_probe"] == before + 1
+    plain = ops.hash_probe(kr, off_r, sz_r, ks, off_s, sz_s, cap, "torch")
+    assert ops.launch_counts()["hash_probe"] == before + 1
+    bkeys, _, _ = thj.build_blocks(kr, off_r, sz_r, cap)
+    row = torch.arange(ks.shape[0], dtype=torch.int32, device=dev)
+    part = (torch.searchsorted(off_s, row, right=True, out_int32=True) - 1).clamp(min=0)
+    vid, hit = ref.hash_probe_blocks(bkeys, off_r, ks, part)
+    for x, y in zip(got, plain):
         assert torch.equal(x, y)
-    pk, part, _ = kprobe.layout_probe_blocks(ks, off_s[:P], sz_s[:P], cap,
-                                             -(-ks.shape[0] // cap) + P)
-    vid, hit = kprobe.hash_probe(bkeys, off_r[:P].contiguous(), pk, part)
-    pv, ph = ref.hash_probe_blocks(bkeys, off_r[:P], pk.reshape(-1),
-                                   part.repeat_interleave(cap))
-    assert torch.equal(vid.reshape(-1), pv) and torch.equal(hit.reshape(-1), ph)
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+    assert torch.equal(got[0], vid) and torch.equal(got[1], hit.bool())
+    assert 0 < int(got[1].sum()) < ks.shape[0]
+
+
+# The probe's edge cases, each a small partitioned layout made with numpy:
+# (kr, off_r, sz_r, ks, off_s, sz_s) int32, partitions in row order, the
+# probe side followed by the sentinel partition's rows (KEY_SENTINEL keys)
+# past partition P - 1. tests/test_torch_kernels.py holds the plain version
+# against the JAX package on the same layouts.
+PROBE_EDGES = ["plain", "overflow", "dup_build_keys", "empty_partitions", "sentinels",
+               "one_partition", "empty_probe", "all_miss", "full_blocks"]
+PROBE_CAPS = [1, 256, 12288]
+_MISS = 1 << 22  # probe keys at or above this match no build key
+
+
+def _probe_edge(case, cap, seed=0):
+    rng = np.random.default_rng([seed, cap, PROBE_EDGES.index(case)])
+    P = 1 if case == "one_partition" else 8
+    sz_r = rng.integers(0, min(cap, 40) + 1, P)
+    sz_s = rng.integers(0, 60, P)
+    if case == "overflow":
+        sz_r[1] = cap + 5  # only the first cap rows can match
+    if case == "full_blocks":
+        sz_r[:] = min(cap, 3000)
+    if case == "empty_partitions":
+        sz_r[[0, 3, 4]] = 0
+        sz_s[[2, 3, 7]] = 0
+    if case == "empty_probe":
+        sz_s[:] = 0
+    keys = rng.permutation(1 << 21)[:int(sz_r.sum())].astype(np.int32)
+    off_r = np.concatenate([[0], np.cumsum(sz_r)[:-1]]).astype(np.int32)
+    ks = []
+    for p in range(P):
+        part = keys[off_r[p]:off_r[p] + sz_r[p]]
+        if case == "dup_build_keys" and part.shape[0] > 1:
+            # a third of the rows repeat an earlier row's key: the first wins
+            for i in range(1, part.shape[0]):
+                if rng.random() < 0.33:
+                    part[i] = part[rng.integers(0, i)]
+        if case == "sentinels" and part.shape[0]:
+            part[rng.random(part.shape[0]) < 0.2] = -1
+        n = sz_s[p]
+        if part.shape[0] and case != "all_miss":
+            probe = rng.choice(part, n)
+            if case == "overflow" and p == 1:
+                # both rows kept in the block and rows past it
+                probe[: n // 2] = rng.choice(part[:cap], n // 2)
+                probe[n // 2:] = rng.choice(part[cap:], n - n // 2)
+        else:
+            probe = np.zeros(n, np.int32)
+        probe[rng.random(n) < 0.3] = 0
+        probe = np.where(probe == 0, rng.integers(_MISS, 2 * _MISS, n), probe)
+        if case == "sentinels":
+            probe[rng.random(n) < 0.1] = -1
+        ks.append(probe.astype(np.int32))
+    tail = 0 if case == "empty_probe" else 17 if case == "sentinels" else 5
+    ks = np.concatenate(ks + [np.full(tail, -1, np.int32)])
+    off_s = np.concatenate([[0], np.cumsum(sz_s)[:-1]]).astype(np.int32)
+    return (keys, off_r, sz_r.astype(np.int32), ks, off_s, sz_s.astype(np.int32))
+
+
+@pytest.mark.parametrize("cap", PROBE_CAPS + [32, 257])
+@pytest.mark.parametrize("case", PROBE_EDGES)
+def test_probe_kernel_edge_cases_equal_plain(dev, case, cap):
+    """Every edge case on the warp tables (cap <= 256) and the block tables
+    (257: wider than a warp's table; 12288: the widest block); one launch a
+    call, none on an empty probe side."""
+    args = [_on(dev, a) for a in _probe_edge(case, cap)]
+    before = ops.launch_counts()["hash_probe"]
+    vid, hit = ops.hash_probe(*args, cap, "cuda")
+    assert ops.launch_counts()["hash_probe"] == before + (args[3].shape[0] > 0)
+    pv, ph = ref.hash_probe(*args, cap)
+    assert torch.equal(vid, pv) and torch.equal(hit, ph)
+    if case == "all_miss":
+        assert not bool(hit.any()) and bool((vid == -1).all())
+    if case == "overflow":
+        assert bool(hit.any()) and not bool(hit.all())
+
+
+def test_probe_kernel_wide_partitions(dev):
+    """Partitions far wider than a warp's table and than one block's
+    threads: a few thousand build and probe rows each, duplicates included,
+    at cap 2048 and 12288."""
+    rng = np.random.default_rng(9)
+    P = 6
+    sz_r = np.array([3000, 0, 12288, 5000, 1, 2048], np.int32)
+    keys = rng.integers(0, 30_000, int(sz_r.sum())).astype(np.int32)
+    off_r = np.concatenate([[0], np.cumsum(sz_r)[:-1]]).astype(np.int32)
+    sz_s = np.array([7000, 100, 20_000, 0, 3, 9000], np.int32)
+    ks = rng.integers(-1, 40_000, int(sz_s.sum()) + 9).astype(np.int32)
+    off_s = np.concatenate([[0], np.cumsum(sz_s)[:-1]]).astype(np.int32)
+    args = [_on(dev, a) for a in (keys, off_r, sz_r, ks, off_s, sz_s)]
+    for cap in (2048, 12288):
+        vid, hit = ops.hash_probe(*args, cap, "cuda")
+        pv, ph = ref.hash_probe(*args, cap)
+        assert torch.equal(vid, pv) and torch.equal(hit, ph)
+
+
+def test_probe_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    args = [_on(dev, a) for a in _probe_edge("plain", 256)]
+    with pytest.raises(ValueError):
+        kprobe.hash_probe(*args, 12289)
+    with pytest.raises(ValueError):
+        kprobe.hash_probe(*args, 0)
+    with pytest.raises(TypeError):
+        kprobe.hash_probe(args[0].long(), *args[1:], 256)
+    with pytest.raises(ValueError):
+        kprobe.hash_probe(*args[:2], args[2][:-1], *args[3:], 256)
+
+
+def test_phj_join_and_join_sequence_probe_arms_equal(dev, monkeypatch):
+    """phj_join and a join sequence with the probe kernel against the same
+    calls on the probe's plain arm (probe_impl='torch'; the sequence, which
+    takes no probe_impl, through ops.hash_probe patched to that arm), row
+    for row."""
+    R, S, _ = relgen.generate_tpc("J2", scale=1 / 256, payload_bytes=8)
+    Rt, St = T.table_from_numpy(R, device="cuda"), T.table_from_numpy(S, device="cuda")
+    fact, dims, fks, dks = relgen.generate_star(200_000, 50_000, 3, seed=4)
+    ft = T.table_from_numpy(fact, device="cuda")
+    dt = [T.table_from_numpy(d, device="cuda") for d in dims]
+
+    def run(arm):
+        return [thj.phj_join(Rt, St, probe_impl=arm),
+                T.join_sequence(ft, dt, fk_cols=fks, dim_keys=dks, algorithm="phj",
+                                restore_order=True)]
+
+    before = ops.launch_counts()["hash_probe"]
+    kernel = run(None)
+    assert ops.launch_counts()["hash_probe"] == before + 1 + 3
+    probe = ops.hash_probe
+    monkeypatch.setattr(ops, "hash_probe", lambda *a: probe(*a[:7], "torch"))
+    plain = run("torch")
+    assert ops.launch_counts()["hash_probe"] == before + 1 + 3
+    for (a, ca), (b, cb) in zip(kernel, plain):
+        assert int(ca) == int(cb) > 0
+        for name in a.column_names:
+            assert torch.equal(a[name], b[name]), name
 
 
 @pytest.mark.parametrize("dtype", [np.int64, np.float32, np.int32, np.float64])
@@ -662,3 +811,102 @@ def test_nphj_and_join_sequences_on_card_equal_cpu(dev):
         assert int(ca) == int(cb)
         for name in a.column_names:
             assert torch.equal(a[name], b[name].cpu()), name
+
+
+# ---------------------------------------------------------------------------
+# the per-tile histograms
+# ---------------------------------------------------------------------------
+# 20M digits: 19,532 tiles, several waves of the persistent grid on an H100
+HIST_SIZES = [1, 1000, 37 * 1024 + 5, 20_000_003]
+
+
+@pytest.mark.parametrize("n", HIST_SIZES)
+@pytest.mark.parametrize("bins", [1, 8, 256, 257, 1024])
+def test_block_histograms_kernel_equals_plain(dev, bins, n):
+    """Pads (< 0) and digits >= bins count nowhere; a ragged last tile, a
+    column shorter than a tile, and a view one digit off the 16-byte
+    boundary (the scalar path) all equal the plain version exactly."""
+    rng = np.random.default_rng([bins, n])
+    whole = _on(dev, rng.integers(-2, bins + 3, n + 1).astype(np.int32))
+    before = ops.launch_counts()["block_histograms"]
+    for d in (whole[:n], whole[1:]):
+        got = krp.block_histograms(d, bins)
+        assert got.shape == (-(-n // krp.TILE), bins)
+        assert torch.equal(got, ref.block_histograms(d, bins, krp.TILE))
+    assert ops.launch_counts()["block_histograms"] == before + 2
+
+
+@pytest.mark.parametrize("tile", [1, 100, 4096])
+def test_block_histograms_kernel_other_tiles(dev, tile):
+    rng = np.random.default_rng(tile)
+    d = _on(dev, rng.integers(-1, 260, 1_000_003).astype(np.int32))
+    for bins in (8, 256, 257):
+        assert torch.equal(krp.block_histograms(d, bins, tile=tile),
+                           ref.block_histograms(d, bins, tile))
+
+
+def test_block_histograms_kernel_one_digit(dev):
+    """Every digit the same bin: every atomic of a warp on one address."""
+    d = torch.full((3 * 1024 * 1024 + 3,), 7, dtype=torch.int32, device=dev)
+    got = krp.block_histograms(d, 256)
+    assert torch.equal(got, ref.block_histograms(d, 256, krp.TILE))
+    assert int(got[:, 7].sum()) == d.shape[0] and int(got.sum()) == d.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# every kernel launches on the card that holds its tensors
+# ---------------------------------------------------------------------------
+def test_kernels_launch_on_their_tensors_card(dev):
+    """Each of the eight kernels on tensors of cuda:1 while cuda:0 is the
+    current card, against its plain version on the same tensors; the
+    current card is left as it was."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: the kernels' tensors on the second, the first current")
+    other = torch.device("cuda", 1)
+    rng = np.random.default_rng(1)
+    digits = _on(other, rng.integers(-1, 256, 300_001).astype(np.int32))
+    probe = [_on(other, a) for a in _probe_edge("plain", 256)]
+    agg = tuple(_on(other, a) for a in _probe_agg_edge(rng, "dup_build_key", 256, np.int64))
+    keys, vals = _sorted_case(rng, 100_003)
+    sk, sv = _on(other, keys), _on(other, vals)
+    src = _on(other, rng.normal(size=5000).astype(np.float32))
+    idx = _on(other, np.sort(rng.integers(-1, 5000, 20_000)).astype(np.int32))
+    build = torch.sort(_on(other, rng.integers(0, 1 << 20, 50_000).astype(np.int32))).values
+    sides = (("probe", 0), ("build", 1))
+    calls = {
+        "block_histograms": (lambda: krp.block_histograms(digits, 256),
+                             lambda: ref.block_histograms(digits, 256, krp.TILE)),
+        "partition_ranks": (
+            lambda: krp.rank_with_base(digits, krp.tile_base(
+                ref.block_histograms(digits, 256, krp.TILE))[0], 256),
+            lambda: ref.partition_ranks(digits, 256)),
+        "hash_probe": (lambda: kprobe.hash_probe(*probe, 256),
+                       lambda: ref.hash_probe(*probe, 256)),
+        "clustered_gather": (lambda: kgather.clustered_gather(src, idx),
+                             lambda: ref.clustered_gather(src, idx)),
+        "probe_agg": (lambda: kprobe.probe_agg(*agg, sides),
+                      lambda: ref.probe_agg_blocks(*agg, sides)),
+        "segsum_partials": (lambda: kseg.segsum_partials(sk, sv, 256),
+                            lambda: ref.segsum_partials(sk, sv, 256)),
+        "lower_bound": (lambda: kmj.lower_bound(build, sk),
+                        lambda: ref.lower_bound(build, sk)),
+        "histogram": (lambda: khist.histogram(digits, 256),
+                      lambda: ref.histogram(digits, 256)),
+    }
+    assert sorted(calls) == sorted(ops.launch_counts())
+    with torch.cuda.device(0):
+        for name, (kernel, plain) in calls.items():
+            before = ops.launch_counts()[name]
+            got = kernel()
+            torch.cuda.synchronize(other)
+            assert ops.launch_counts()[name] == before + 1, name
+            assert torch.cuda.current_device() == 0, name
+            got = got if isinstance(got, tuple) else (got,)
+            want = plain()
+            want = want if isinstance(want, tuple) else (want,)
+            for g, w in zip(got, want):
+                assert g.device == other, name
+                if g.dtype.is_floating_point:
+                    torch.testing.assert_close(g, w, **SUM_TOL)
+                else:
+                    assert torch.equal(g, w), name

@@ -41,8 +41,9 @@ from repro_torch.kernels import radix_partition as trp  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import segsum as tseg  # noqa: E402
 from test_torch_cuda import (GATHER_DTYPES, GATHER_EDGES, LB_EDGES,  # noqa: E402
-                             PROBE_AGG_EDGES, RANK_CASES, _gather_edge, _gather_numpy,
-                             _lb_edge, _probe_agg_edge, _rank_case)
+                             PROBE_AGG_EDGES, PROBE_CAPS, PROBE_EDGES, RANK_CASES,
+                             _gather_edge, _gather_numpy, _lb_edge, _probe_agg_edge,
+                             _probe_edge, _rank_case)
 
 
 def _t(a):
@@ -192,7 +193,8 @@ def test_apply_partition_matches_jax():
 # ---------------------------------------------------------------------------
 def _probe_inputs(seed=0, nR=1500, nS=4000, p_bits=5, cap=256):
     """Partitioned build/probe sides from the port's planner; a fifth of the
-    probe keys have no partner and a few are sentinels."""
+    probe keys have no partner and a few are sentinels. Returns (kr, off_r,
+    sz_r, ks, off_s, sz_s) for the P real partitions."""
     rng = np.random.default_rng(seed)
     P = 1 << p_bits
     rkeys = rng.permutation(50_000)[:nR].astype(np.int32)
@@ -204,38 +206,98 @@ def _probe_inputs(seed=0, nR=1500, nS=4000, p_bits=5, cap=256):
     dig_s = thj._digits(_t(skeys), p_bits, True)
     perm_r, _, off_r, sz_r = tops.partition_plan(dig_r, P + 1, impl="torch")
     perm_s, _, off_s, sz_s = tops.partition_plan(dig_s, P + 1, impl="torch")
-    kr, ks = _t(rkeys)[perm_r], _t(skeys)[perm_s]
-    bkeys, _, ovf = thj.build_blocks(kr, off_r[:P], sz_r[:P], cap)
-    assert not bool(ovf)
-    return bkeys, off_r[:P], ks, off_s[:P], sz_s[:P]
+    assert int(sz_r[:P].max()) <= cap
+    return _t(rkeys)[perm_r], off_r[:P], sz_r[:P], _t(skeys)[perm_s], off_s[:P], sz_s[:P]
+
+
+def _jax_probe_arms(kr, off_r, sz_r, ks, off_s, sz_s, cap):
+    """The JAX package's `ops.hash_probe` on the same partitioned columns,
+    its bkeys from its own `build_blocks`: {"xla": (vid, hit), "pallas":
+    (vid, hit)}. The pallas arm runs the Pallas kernel in interpret mode; at
+    build blocks wider than 256 keys it is called directly on 256-row probe
+    sub-blocks (the arm's own capS = capR would compare 12288 x 12288
+    matrices in the interpreter), and its results are put back in row order
+    as the arm does. An empty probe column has no pallas entry: the JAX
+    layout cannot take one (`jnp.take` from an empty axis), and the arm
+    degrades to the xla arm there."""
+    j = [jnp.asarray(x.numpy()) for x in (kr, off_r, sz_r, ks, off_s, sz_s)]
+    bkeys = jhj.build_blocks(j[0], j[1], j[2], cap)[0]
+    out = {"xla": jops.hash_probe(bkeys, j[1], j[3], j[4], j[5], "xla")}
+    if ks.shape[0] == 0:
+        return out
+    if cap <= 256:
+        out["pallas"] = jops.hash_probe(bkeys, j[1], j[3], j[4], j[5], "pallas")
+        return out
+    cap_s, n = 256, ks.shape[0]
+    pk, part, src = layout_probe_blocks(j[3], j[4], j[5], cap_s, -(-n // cap_s) + off_r.shape[0])
+    vid, hit = hash_probe_pallas(bkeys, j[1], pk, part, interpret=True)
+    src, vid, hit = (np.asarray(x).reshape(-1) for x in (src, vid, hit))
+    v, h = np.full(n, -1, np.int32), np.zeros(n, bool)
+    v[src[src >= 0]], h[src[src >= 0]] = vid[src >= 0], hit[src >= 0]
+    out["pallas"] = (v, h)
+    return out
+
+
+def _check_probe_arms(arms, vid, hit):
+    """Hits equal both JAX arms'; vid equals the pallas arm's everywhere (-1
+    on a miss, as the kernel gives) and the xla arm's on the hits (its plain
+    probe gives off_r[part] on a miss)."""
+    h = hit.numpy()
+    for arm, (jvid, jhit) in arms.items():
+        np.testing.assert_array_equal(np.asarray(jhit), h, err_msg=arm)
+        jvid = np.asarray(jvid)
+        if arm == "xla":
+            jvid = np.where(h, jvid, -1)
+        np.testing.assert_array_equal(jvid, vid.numpy(), err_msg=arm)
 
 
 def test_hash_probe_matches_pallas_arm():
-    bkeys, off_r, ks, off_s, sz_s = _probe_inputs()
-    jargs = [jnp.asarray(x.numpy()) for x in (bkeys, off_r, ks, off_s, sz_s)]
-    jvid, jhit = jops.hash_probe(*jargs, "pallas")
-    vid, hit = tops.hash_probe(bkeys, off_r, ks, off_s, sz_s)  # CPU -> plain arm
+    args = _probe_inputs()
+    arms = _jax_probe_arms(*args, 256)
+    vid, hit = tops.hash_probe(*args, 256)  # CPU -> plain arm
     assert vid.dtype == torch.int32 and hit.dtype == torch.bool
-    _eq(jhit, hit)
-    _eq(jvid, vid)  # -1 on a miss, as the kernel gives
-    assert 0 < int(hit.sum()) < ks.shape[0]
+    _check_probe_arms(arms, vid, hit)
+    assert 0 < int(hit.sum()) < args[3].shape[0]
 
 
 def test_hash_probe_blocks_match_pallas_kernel():
-    bkeys, off_r, ks, off_s, sz_s = _probe_inputs(seed=1)
-    cap = bkeys.shape[1]
-    max_blocks = -(-ks.shape[0] // cap) + bkeys.shape[0]
+    """The probe kernel's plain version (kernels/hash_probe.hash_probe, which
+    reads the partitioned columns) against the Pallas kernel itself on the
+    JAX package's padded layout, put back in row order; the layout the
+    group-join's probe_agg still reads equals the JAX one."""
+    kr, off_r, sz_r, ks, off_s, sz_s = _probe_inputs(seed=1)
+    cap = 256
+    max_blocks = -(-ks.shape[0] // cap) + off_r.shape[0]
     jlay = layout_probe_blocks(*[jnp.asarray(x.numpy()) for x in (ks, off_s, sz_s)], cap,
                                max_blocks)
     lay = thp.layout_probe_blocks(ks, off_s, sz_s, cap, max_blocks)
     for a, b in zip(jlay, lay):
         _eq(a, b)
-    pk, part, _ = lay
-    jvid, jhit = hash_probe_pallas(jnp.asarray(bkeys.numpy()), jnp.asarray(off_r.numpy()),
-                                   jlay[0], jlay[1], interpret=True)
-    vid, hit = thp.hash_probe(bkeys, off_r, pk, part)  # the kernel's plain version
-    _eq(jvid, vid)
-    _eq(jhit, hit)
+    bkeys = jhj.build_blocks(*[jnp.asarray(x.numpy()) for x in (kr, off_r, sz_r)], cap)[0]
+    jvid, jhit = hash_probe_pallas(bkeys, jnp.asarray(off_r.numpy()), jlay[0], jlay[1],
+                                   interpret=True)
+    src = np.asarray(jlay[2]).reshape(-1)
+    vid, hit = thp.hash_probe(kr, off_r, sz_r, ks, off_s, sz_s, cap)  # the plain version
+    np.testing.assert_array_equal(vid.numpy()[src[src >= 0]], np.asarray(jvid).reshape(-1)[src >= 0])
+    np.testing.assert_array_equal(hit.numpy()[src[src >= 0]],
+                                  np.asarray(jhit).reshape(-1)[src >= 0] == 1)
+    # rows in no sub-block are the sentinel partition's: misses
+    rest = np.setdiff1d(np.arange(ks.shape[0]), src[src >= 0])
+    assert rest.size and bool((vid.numpy()[rest] == -1).all()) and not hit.numpy()[rest].any()
+
+
+@pytest.mark.parametrize("cap", PROBE_CAPS)
+@pytest.mark.parametrize("case", PROBE_EDGES)
+def test_hash_probe_edge_cases_match_jax_arms(case, cap):
+    """Every edge case of the card tests (overflowing and duplicate build
+    keys, empty partitions, sentinels, P = 1, an empty probe side, all
+    misses, full blocks) at build blocks of 1, 256 and 12288 keys: the
+    port's plain arm against the JAX package's xla and pallas arms,
+    integers exact."""
+    args = [_t(a) for a in _probe_edge(case, cap)]
+    vid, hit = tops.hash_probe(*args, cap)
+    assert vid.dtype == torch.int32 and hit.dtype == torch.bool
+    _check_probe_arms(_jax_probe_arms(*args, cap), vid, hit)
 
 
 # ---------------------------------------------------------------------------
@@ -761,7 +823,7 @@ _BK = torch.full((2, 4), -1, dtype=torch.int32)
 
 @pytest.mark.parametrize("call,match", [
     (lambda: tops.partition_plan(_I32, 3, impl="cuda"), "needs CUDA tensors"),
-    (lambda: tops.hash_probe(_BK, _I32[:2], _I32, _I32[:2], _I32[:2], "cuda"),
+    (lambda: tops.hash_probe(_I32, _I32[:2], _I32[:2], _I32, _I32[:2], _I32[:2], 4, "cuda"),
      "needs CUDA tensors"),
     (lambda: tops.clustered_gather(_I32, _I32, "cuda"), "needs CUDA tensors"),
     (lambda: thj.phj_join(TTable({"k": _I32}), TTable({"k": _I32}), probe_impl="cuda"),
