@@ -29,7 +29,8 @@
        sort strategy on the card, and against a second run bit for bit;
    (e) the sort group-bys over the join output: strategy="sort" with the
        query's aggregates (equal to the numpy reference), and
-       strategy="sort_pallas" with {s1: sum, r2: count}.
+       strategy="sort_pallas" with {s1: sum, r2: count}, profiled warm, and
+       one of its combines (`ops.groupby_sorted_sum` of s1) profiled alone.
    (f) the sort-merge join, SMJ-OM and SMJ-UM (one lower_bound launch
        each), equal to each other and to the plain lower-bound arm row for
        row, and to the numpy reference per key; a profiled warm SMJ-OM run;
@@ -48,13 +49,15 @@
    ratio). The per-tile histograms have a row for each of the join plan's
    first pass (256 bins), the group-by's first pass (257) and the join
    plan's last pass (8); the rank kernel is also timed at 257 and 8 bins.
-   The probe runs on the join's partitioned key columns. The gather has a
-   row for each of PHJ-OM's two maps (build side, probe side), the lower
-   bound a row for J2's sweep,
-   for a short probe column whose tiles span far past its ring of build keys,
-   and for int64 keys. (k) The global histogram is driven through
-   its own entry point (`ops.histogram`) first; its full-fan-out counts must
-   equal the join's partition plan's sizes.
+   The probe runs on the join's partitioned key columns. The segmented
+   sums must equal their plain version bit for bit (keys, sums, counts and
+   the number of partials), and a second launch must give the same bytes.
+   The gather has a row for each of PHJ-OM's two maps (build side, probe
+   side), the lower bound a row for J2's sweep, for a short probe column
+   whose tiles span far past its ring of build keys, and for int64 keys.
+   (k) The global histogram is driven through its own entry point
+   (`ops.histogram`) first; its full-fan-out counts must equal the join's
+   partition plan's sizes.
 7. Frees J2 and drives two more paths, with counters as above:
    (i) the m:n sort-merge join of the TPC-DS Q95 extract J5 at scale 1
        (72,000,000 x 72,000,000 rows, keys uniform in [0, 18,000,000), int64
@@ -482,6 +485,17 @@ def main() -> None:
     del Gs, Gsh
     (Gp, gpc), sp_info = run_path("j2_groupby_sort_pallas", lambda: group_aggregate(
         T, key="k", aggs=SP_AGGS, num_groups=N_GROUPS, strategy="sort_pallas"), SP_LAUNCHES)
+    # the path's device time by kernel, and one combine alone (the s1 pass:
+    # per-tile partials and their merge into groups) on the same sorted rows
+    psk, pperm = prim.plan_sort_permutation(T["k"])
+    psv = T["s1"][pperm].to(torch.float32)
+    del pperm
+    log(json.dumps({"j2_groupby_sort_pallas_profile": {
+        "path": profile_run(lambda: group_aggregate(T, key="k", aggs=SP_AGGS,
+                                                    num_groups=N_GROUPS,
+                                                    strategy="sort_pallas")),
+        "one_combine": profile_run(lambda: ops.groupby_sorted_sum(psk, psv, N_GROUPS))}}))
+    del psk, psv
     Gph = table_to_numpy(Gp.head(int(gpc)))
     check(int(gpc) == m and np.array_equal(Gph["k"], keys_ref),
           "sort_pallas: keys differ from numpy")
@@ -737,17 +751,22 @@ def main() -> None:
     del perm, tk, ts1
     seg_out = kseg.segsum_partials(sk, sv)
     seg_plain = ref.segsum_partials(sk, sv, kseg.TILE)
-    # tile-local run lengths, for the one library call that sums the same
-    # runs (sums only: no keys, no counts, no slot layout)
-    lengths = seg_out[2][seg_out[0] != -1].to(torch.int64)
+    seg_again = kseg.segsum_partials(sk, sv)
+    for k_, p_, a_, what in zip(seg_out, seg_plain, seg_again, ("keys", "sums", "counts")):
+        check(k_.shape == p_.shape and torch.equal(k_, p_),
+              f"segsum_partials: {what} differ from the plain version's (n_live {k_.shape[0]} "
+              f"against {p_.shape[0]})")
+        check(torch.equal(k_, a_), f"segsum_partials: a second launch gives other {what}")
+    del seg_again, k_, p_, a_
+    # the run lengths, for the one library call that sums the same runs
+    # (sums only: no keys, no counts, no compaction)
+    lengths = seg_out[2].to(torch.int64)
     check(int(lengths.sum()) == n_s, "segsum_partials: the runs do not cover the rows")
-    # bytes the data needs, by probe_agg's rule: each sorted key and value
-    # read once, one (key, sum, count) partial written per live slot; the
-    # slot layout writes every slot
+    # bytes the data needs: each sorted key and value read once, one (key,
+    # sum, count) partial written per run
     seg_live = lengths.shape[0]
-    seg_padded = n_s * (4 + 4) + seg_out[0].numel() * (4 + 4 + 4)
-    log(f"segsum_partials: {seg_live} live partials in {seg_out[0].numel()} slots; slot "
-        f"layout bytes={seg_padded} bound {seg_padded / HBM_BYTES_PER_S * 1e3:.6f} ms")
+    log(f"segsum_partials: {seg_live} live partials of {n_s} rows, equal bit for bit to the "
+        f"plain version's and to a second launch")
     record("segsum_partials", list(seg_out), list(seg_plain),
            lambda: kseg.segsum_partials(sk, sv), lambda: ref.segsum_partials(sk, sv, kseg.TILE),
            lambda: torch.segment_reduce(sv, "sum", lengths=lengths, unsafe=True),

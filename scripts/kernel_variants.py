@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
-"""Times design variants of the port's probe and per-tile histogram kernels
-against the kept sources, on one NVIDIA GPU, at J2's shapes.
+"""Times design variants of the port's probe, per-tile histogram and
+segmented-sum kernels against the kept sources, on one NVIDIA GPU, at J2's
+shapes.
 
-    python3 scripts/kernel_variants.py [--rounds 21]
+    python3 scripts/kernel_variants.py [--rounds 21] [--kernel segsum_partials]
 
-Each variant is the kept source (`src/repro_torch/csrc/hash_probe.cu` or
-`block_histograms.cu`) with one named text edit (`VARIANTS`), written to
+Each variant is the kept source (`src/repro_torch/csrc/hash_probe.cu`,
+`block_histograms.cu` or `segsum_partials.cu`) with one named text edit
+(`VARIANTS`), written to
 `build/kernel_variants/`, built with the port's nvcc flags and loaded with
 ctypes beside the kept kernel. Variants that change the output say so
 (`exact=False`): they take a part of the kernel away to show what that part
 costs. The script makes J2's partitioned key columns (TPC-H Q18 at scale 1,
 seed 0: 15M build and 60M probe keys, 2^18 partitions) and the digits of
-the probe side's plan passes (256, 257 and 8 bins), then times every
-variant of a kernel once a round, in an order that turns each round, and
-prints each one's median milliseconds, its minimum and the min, median and
-max of its per-round ratio to the kept kernel. It also times a `copy_` of
-the 60M digits, the card's copy rate on the same bytes. Prints the card's
-name and power limit first. Exits non-zero without a CUDA device.
+the probe side's plan passes (256, 257 and 8 bins), and the sort_pallas
+group-by's s1 pass (the probe side's 60M keys sorted, their s1 as float32,
+and the same rows with every key equal: the serial-add worst case), then
+times every variant of a kernel once a round, in an order that turns each
+round, and prints each one's median milliseconds, its minimum and the min,
+median and max of its per-round ratio to the kept kernel. It also times a
+`copy_` of the 60M digits and of the sorted keys and values, the card's
+copy rate on the same bytes. Prints the card's name and power limit first.
+Exits non-zero without a CUDA device.
 """
 import argparse
 import ctypes
@@ -94,6 +99,52 @@ VARIANTS = {
     "block_histograms 3 blocks an SM": ("block_histograms", True, [
         ("__launch_bounds__(WARPS * 32) block_histograms_kernel(",
          "__launch_bounds__(WARPS * 32, 3) block_histograms_kernel(")]),
+    "segsum_partials": ("segsum_partials", True, []),
+    "segsum_partials chunks of 512 rows": ("segsum_partials", True, [
+        ("constexpr int ROW_WARPS = 2;", "constexpr int ROW_WARPS = 1;"),
+        ("constexpr int BLOCKS_PER_SM = 5;", "constexpr int BLOCKS_PER_SM = 10;")]),
+    "segsum_partials chunks of 2048 rows": ("segsum_partials", True, [
+        ("constexpr int ROW_WARPS = 2;", "constexpr int ROW_WARPS = 4;"),
+        ("constexpr int BLOCKS_PER_SM = 5;", "constexpr int BLOCKS_PER_SM = 2;")]),
+    "segsum_partials a warp per tile": ("segsum_partials", True, [
+        ("constexpr int ROW_WARPS = 2;", "constexpr int ROW_WARPS = 1;"),
+        ("constexpr int ITEMS = 16;", "constexpr int ITEMS = 8;"),
+        ("constexpr int BLOCKS_PER_SM = 5;", "constexpr int BLOCKS_PER_SM = 16;")]),
+    "segsum_partials 8 rows a thread": ("segsum_partials", True, [
+        ("constexpr int ROW_WARPS = 2;", "constexpr int ROW_WARPS = 4;"),
+        ("constexpr int ITEMS = 16;", "constexpr int ITEMS = 8;")]),
+    "segsum_partials one stage": ("segsum_partials", True, [
+        ("constexpr int STAGES = 2;", "constexpr int STAGES = 1;"),
+        ("constexpr int BLOCKS_PER_SM = 5;", "constexpr int BLOCKS_PER_SM = 7;")]),
+    "segsum_partials three stages": ("segsum_partials", True, [
+        ("constexpr int STAGES = 2;", "constexpr int STAGES = 3;"),
+        ("constexpr int BLOCKS_PER_SM = 5;", "constexpr int BLOCKS_PER_SM = 4;")]),
+    "segsum_partials look-back of 128 chunks a trip": ("segsum_partials", True, [
+        ("constexpr int LOOKBACK = 1;", "constexpr int LOOKBACK = 4;")]),
+    "segsum_partials look-back words packed": ("segsum_partials", True, [
+        ("constexpr int STATUS_STRIDE = 16;", "constexpr int STATUS_STRIDE = 1;")]),
+    "segsum_partials edges and counts only": ("segsum_partials", False, [
+        ("if (i >= STAGES && s_slot_chunk[slot] >= 0) {", "if (false) {"),
+        ("s_slot_chunk[slot] = live ? cur : -1;", "s_slot_chunk[slot] = -1;"),
+        ("    if (live) {\n      // Each run's partial",
+         "    if (false) {\n      // Each run's partial")]),
+    "segsum_partials no write-out": ("segsum_partials", False, [
+        ("if (i >= STAGES && s_slot_chunk[slot] >= 0) {", "if (false) {"),
+        ("s_slot_chunk[slot] = live ? cur : -1;", "s_slot_chunk[slot] = -1;")]),
+    "segsum_partials loads only": ("segsum_partials", False, [
+        ("const int rows = live ? chunk_rows_of(cur, chunk_rows, n) : 0;", "const int rows = 0;"),
+        ("if (i >= STAGES && s_slot_chunk[slot] >= 0) {", "if (false) {"),
+        ("s_slot_chunk[slot] = live ? cur : -1;", "s_slot_chunk[slot] = -1;"),
+        ("    if (live) {\n      // Each run's partial",
+         "    if (false) {\n      // Each run's partial")]),
+    "segsum_partials no look-back (slot offsets)": ("segsum_partials", False, [
+        ("const unsigned long long before = look_back(status, c, unsorted);",
+         "unsorted = false;\n        const unsigned long long before = c * chunk_rows;")]),
+    "segsum_partials no float sums": ("segsum_partials", False, [
+        ("        acc += v[j];", "        acc = 0.f;"),
+        ("carry = (j == 0 ? up : carry) + v[j];", "carry = up;"),
+        ("if (j < first) c += v[j];", "if (j < first) c = 0.f;"),
+        ("++i) walk += sv[sp<float>(i)];", "++i) {\n          }")]),
 }
 
 
@@ -136,7 +187,10 @@ def build(names, nvcc_flags):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=21)
+    ap.add_argument("--kernel", choices=sorted({v[0] for v in VARIANTS.values()}),
+                    help="time only this kernel's variants")
     args = ap.parse_args()
+    kernels = {args.kernel} if args.kernel else {v[0] for v in VARIANTS.values()}
     import torch
 
     if not torch.cuda.is_available():
@@ -148,21 +202,24 @@ def main():
     from repro_torch.data.relgen import generate_tpc
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import radix_partition as krp
+    from repro_torch.kernels import segsum as kseg
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout
     print(smi.strip().splitlines()[0], flush=True)
-    paths = build(list(VARIANTS), _build.NVCC_FLAGS)
+    paths = build([k for k, v in VARIANTS.items() if v[0] in kernels], _build.NVCC_FLAGS)
 
     def load(name):
+        """The variant's library, with the argument and result types of its
+        entry points set."""
         lib = ctypes.CDLL(str(paths[name]))
-        kernel = VARIANTS[name][0]
-        getattr(lib, kernel).argtypes = _build.SIGNATURES[kernel][kernel]
-        getattr(lib, kernel).restype = ctypes.c_int
-        return getattr(lib, kernel)
+        for fn, argtypes in _build.SIGNATURES[VARIANTS[name][0]].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _build.RESTYPES.get(fn, ctypes.c_int)
+        return lib
 
     Rn, Sn, _ = generate_tpc("J2", scale=1, payload_bytes=8, seed=0)
-    R, S = table_from_numpy({"k": Rn["k"]}), table_from_numpy({"k": Sn["k"]})
+    R, S = table_from_numpy({"k": Rn["k"]}), table_from_numpy({"k": Sn["k"], "s1": Sn["s1"]})
     p_bits = hj.choose_partition_bits(R.num_rows, hj.BUILD_BLOCK)
     P, cap = 1 << p_bits, hj.BUILD_BLOCK
     dig_r, dig_s = hj._digits(R["k"], p_bits, True), hj._digits(S["k"], p_bits, True)
@@ -200,52 +257,92 @@ def main():
                   f"{names[0]!r} {ratio.min():.3f}-{ratio.max():.3f}, median "
                   f"{np.median(ratio):.3f}", flush=True)
 
-    want = ref.hash_probe(*cols, cap)
-    fns = {}
-    for name, (kernel, exact, _) in VARIANTS.items():
-        if kernel != "hash_probe":
-            continue
-        fn = load(name)
-        vid = torch.empty(n, dtype=torch.int32, device=cols[3].device)
-        hit = torch.empty(n, dtype=torch.bool, device=cols[3].device)
-
-        def call(fn=fn, vid=vid, hit=hit, name=name):
-            err = fn(*(c.data_ptr() for c in cols), P, n, cap, vid.data_ptr(), hit.data_ptr(),
-                     *launch)
-            if err:
-                fail(f"{name}: launch error {err}")
-        call()
-        torch.cuda.synchronize()
-        if exact and not (torch.equal(vid, want[0]) and torch.equal(hit, want[1])):
-            fail(f"{name} differs from the plain version")
-        fns[name] = call
-    rounds(fns, f"hash_probe at J2: {n} probe rows, {int(cols[0].shape[0])} build rows, "
-                f"{P} partitions")
-
-    pd = (dig_s & 255).contiguous()
-    gd = torch.where(dig_s == P, 256, dig_s & 255).contiguous()
-    nd = ((dig_s >> 16) & 7).int().contiguous()
-    for d, bins in ((pd, 256), (gd, 257), (nd, 8)):
-        want = ref.block_histograms(d, bins, krp.TILE)
+    if "hash_probe" in kernels:
+        want = ref.hash_probe(*cols, cap)
         fns = {}
         for name, (kernel, exact, _) in VARIANTS.items():
-            if kernel != "block_histograms":
+            if kernel != "hash_probe":
                 continue
-            fn = load(name)
-            out = torch.empty_like(want)
+            fn = load(name).hash_probe
+            vid = torch.empty(n, dtype=torch.int32, device=cols[3].device)
+            hit = torch.empty(n, dtype=torch.bool, device=cols[3].device)
 
-            def call(fn=fn, out=out, d=d, bins=bins, name=name):
-                err = fn(d.data_ptr(), d.shape[0], bins, krp.TILE, out.data_ptr(), *launch)
+            def call(fn=fn, vid=vid, hit=hit, name=name):
+                err = fn(*(c.data_ptr() for c in cols), P, n, cap, vid.data_ptr(), hit.data_ptr(),
+                         *launch)
                 if err:
                     fail(f"{name}: launch error {err}")
             call()
             torch.cuda.synchronize()
-            if exact and not torch.equal(out, want):
-                fail(f"{name} differs from the plain version at {bins} bins")
+            if exact and not (torch.equal(vid, want[0]) and torch.equal(hit, want[1])):
+                fail(f"{name} differs from the plain version")
             fns[name] = call
-        rounds(fns, f"block_histograms on S's {d.shape[0]} digits, {bins} bins")
-    dst = torch.empty_like(pd)
-    rounds({"copy_": lambda: dst.copy_(pd)}, "copy_ of the 60M digits (read and write)")
+        rounds(fns, f"hash_probe at J2: {n} probe rows, {int(cols[0].shape[0])} build rows, "
+                    f"{P} partitions")
+
+    if "block_histograms" in kernels:
+        pd = (dig_s & 255).contiguous()
+        gd = torch.where(dig_s == P, 256, dig_s & 255).contiguous()
+        nd = ((dig_s >> 16) & 7).int().contiguous()
+        for d, bins in ((pd, 256), (gd, 257), (nd, 8)):
+            want = ref.block_histograms(d, bins, krp.TILE)
+            fns = {}
+            for name, (kernel, exact, _) in VARIANTS.items():
+                if kernel != "block_histograms":
+                    continue
+                fn = load(name).block_histograms
+                out = torch.empty_like(want)
+
+                def call(fn=fn, out=out, d=d, bins=bins, name=name):
+                    err = fn(d.data_ptr(), d.shape[0], bins, krp.TILE, out.data_ptr(), *launch)
+                    if err:
+                        fail(f"{name}: launch error {err}")
+                call()
+                torch.cuda.synchronize()
+                if exact and not torch.equal(out, want):
+                    fail(f"{name} differs from the plain version at {bins} bins")
+                fns[name] = call
+            rounds(fns, f"block_histograms on S's {d.shape[0]} digits, {bins} bins")
+        dst = torch.empty_like(pd)
+        rounds({"copy_": lambda: dst.copy_(pd)}, "copy_ of the 60M digits (read and write)")
+
+    if "segsum_partials" in kernels:
+        # the sort_pallas group-by's s1 pass: the join output's keys sorted (the
+        # probe side's keys, at match ratio 1) and s1 as float32
+        sk, order = torch.sort(S["k"], stable=True)
+        sv = S["s1"][order].to(torch.float32)
+        del order
+        for what, keys in (("J2's sorted keys", sk), ("every key equal", torch.full_like(sk, 7))):
+            want = ref.segsum_partials(keys, sv, kseg.TILE)
+            live = want[0].shape[0]
+            fns = {}
+            for name, (kernel, exact, _) in VARIANTS.items():
+                if kernel != "segsum_partials":
+                    continue
+                lib = load(name)
+                fn = lib.segsum_partials
+                out = (torch.empty(n, dtype=keys.dtype, device=keys.device),
+                       torch.empty(n, dtype=torch.float32, device=keys.device),
+                       torch.empty(n, dtype=torch.int32, device=keys.device),
+                       torch.empty(lib.segsum_partials_state_words(n, kseg.TILE),
+                                   dtype=torch.int64, device=keys.device))
+
+                def call(fn=fn, out=out, keys=keys, name=name):
+                    err = fn(keys.data_ptr(), sv.data_ptr(), n, kseg.TILE, keys.element_size(),
+                             *(o.data_ptr() for o in out), *launch)
+                    if err:
+                        fail(f"{name}: launch error {err}")
+                call()
+                torch.cuda.synchronize()
+                got = [o[:live] for o in out[:3]]
+                if exact and (int(out[3][1]) != live
+                              or not all(torch.equal(g, w) for g, w in zip(got, want))):
+                    fail(f"{name} differs from the plain version on {what}")
+                fns[name] = call
+            rounds(fns, f"segsum_partials on {what}: {n} rows, {live} live partials")
+        dk, dv = torch.empty_like(sk), torch.empty_like(sv)
+        rounds({"copy_": lambda: (dk.copy_(sk), dv.copy_(sv))},
+               "copy_ of the sorted keys and values (read and write)")
 
 
 if __name__ == "__main__":

@@ -38,10 +38,14 @@ SIGNATURES = {
     "clustered_gather": {"clustered_gather": (_P, _P, _L, _L, _I, _P, _P, _I)},
     "probe_agg": {"probe_agg": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
                                 _P, _P, _P, _P, _I)},
-    "segsum_partials": {"segsum_partials": (_P, _P, _L, _I, _I, _P, _P, _P, _P, _I)},
+    "segsum_partials": {"segsum_partials": (_P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _I),
+                        "segsum_partials_state_words": (_L, _I)},
     "lower_bound": {"lower_bound": (_P, _I, _P, _L, _I, _P, _P, _I)},
     "histogram": {"histogram": (_P, _L, _I, _P, _P, _I)},
 }
+
+# entry points that return something other than an error code
+RESTYPES = {"segsum_partials_state_words": ctypes.c_longlong}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -100,7 +104,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
         lib.kernel_error_string.argtypes = (ctypes.c_int,)
         lib.kernel_error_string.restype = ctypes.c_char_p
         _libs[name] = lib

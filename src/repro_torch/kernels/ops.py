@@ -304,12 +304,19 @@ def groupjoin_probe_agg(bkeys: torch.Tensor, bvals: torch.Tensor | None,
 def groupby_sorted_sum(sorted_keys: torch.Tensor, values: torch.Tensor, num_groups: int):
     """Group sums over key-sorted rows: per-tile partials over tiles of
     segsum.TILE rows (the segsum_partials kernel; its plain version for CPU
-    tensors), then one stable sort of the partials by key and a sum over
-    each run. Returns (group_keys (G,), float32 sums (G,), valid_count)."""
+    tensors), then a sum over each run of equal partial keys. The partials
+    come compact and in key order, so the runs are found without a sort.
+    Returns (group_keys (G,), float32 sums (G,), valid_count).
+
+    The reference re-sorts its partials (slot layout, sentinel slots among
+    them), so it also sums unsorted rows by key; here unsorted keys raise
+    ValueError (`segsum_partials`)."""
     pk, ps, _ = _segsum.segsum_partials(sorted_keys.contiguous(),
                                         values.to(torch.float32).contiguous())
-    order = torch.sort(pk, stable=True).indices
-    sk = pk[order]
-    valid, _, starts, n_found = sorted_runs(sk, num_groups)
-    sums = RunSums(starts)(torch.where(valid, ps[order], 0.0))
-    return run_keys(sk, starts, n_found), sums, torch.clamp(n_found, max=num_groups)
+    if pk.shape[0] == 0:
+        return (torch.full((num_groups,), KEY_SENTINEL, dtype=pk.dtype, device=pk.device),
+                torch.zeros(num_groups, dtype=torch.float32, device=pk.device),
+                torch.zeros((), dtype=torch.int32, device=pk.device))
+    _, _, starts, n_found = sorted_runs(pk, num_groups)  # every partial key is valid
+    sums = RunSums(starts)(ps)
+    return run_keys(pk, starts, n_found), sums, torch.clamp(n_found, max=num_groups)

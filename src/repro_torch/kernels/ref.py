@@ -171,12 +171,17 @@ def probe_agg_blocks(bkeys: torch.Tensor, bvals: torch.Tensor, probe_blocks: tor
 
 
 def segsum_partials(sorted_keys: torch.Tensor, values: torch.Tensor, tile: int):
-    """Per-tile partials over key-sorted rows (kernels/segsum.py): slot
-    t * tile + g holds tile t's run g of equal valid keys as (key, float32
-    sum in row order, int32 count); KEY_SENTINEL and zeros past the last
-    run. The last tile is padded with KEY_SENTINEL keys."""
+    """Per-tile partials over key-sorted rows (kernels/segsum.py), the live
+    ones only, in tile order: tile t's run g of equal valid keys as (key,
+    float32 sum in row order, int32 count). Computed in the reference's slot
+    layout (slot t * tile + g; KEY_SENTINEL and zeros past the last run; the
+    last tile padded with KEY_SENTINEL keys), then its live slots selected.
+    Raises ValueError when a key is smaller than the one before it."""
     n = sorted_keys.shape[0]
     dev = sorted_keys.device
+    if n > 1 and bool((sorted_keys[1:] < sorted_keys[:-1]).any()):
+        raise ValueError("segsum_partials: sorted_keys are not sorted (a key is smaller than "
+                         "the one before it)")
     pad = ceil_div(n, tile) * tile - n
     k = torch.cat([sorted_keys, torch.full((pad,), KEY_SENTINEL, dtype=sorted_keys.dtype,
                                            device=dev)]).reshape(-1, tile)
@@ -196,5 +201,6 @@ def segsum_partials(sorted_keys: torch.Tensor, values: torch.Tensor, tile: int):
         cnt[ti, g] += 1
     pk = torch.full((T, tile + 1), KEY_SENTINEL, dtype=sorted_keys.dtype, device=dev)
     pk.scatter_(1, torch.where(head, lgid, tile), k)  # one head per run; the spare is cut
-    return (pk[:, :tile].reshape(-1), acc[:, :tile].reshape(-1),
-            cnt[:, :tile].reshape(-1))
+    pk, ps, pc = pk[:, :tile].reshape(-1), acc[:, :tile].reshape(-1), cnt[:, :tile].reshape(-1)
+    live = pk != KEY_SENTINEL
+    return pk[live], ps[live], pc[live]

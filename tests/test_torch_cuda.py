@@ -470,25 +470,64 @@ def _sorted_case(rng, n, key_dtype=np.int32):
     return keys.astype(key_dtype), rng.normal(size=n).astype(np.float32)
 
 
+def _segsum_equal(got, want):
+    """Compact partials of the kernel against its plain version: the same
+    n_live, keys and counts, and sums bit for bit (both add each run's rows
+    in row order in float32)."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("n,tile", [(100_003, 256), (5000, 64), (2, 256), (70_000, 1024)])
 @pytest.mark.parametrize("key_dtype", [np.int32, np.int64])
 def test_segsum_kernel_equals_plain(dev, n, tile, key_dtype):
     keys, vals = _sorted_case(np.random.default_rng(n), n, key_dtype)
     k, v = _on(dev, keys), _on(dev, vals)
     before = ops.launch_counts()["segsum_partials"]
-    pk, ps, pc = kseg.segsum_partials(k, v, tile)
+    got = kseg.segsum_partials(k, v, tile)
     assert ops.launch_counts()["segsum_partials"] == before + 1
-    rk, rs, rc = ref.segsum_partials(k, v, tile)
-    assert torch.equal(pk, rk) and torch.equal(pc, rc)
-    torch.testing.assert_close(ps, rs, **SUM_TOL)
-    assert int(pc.sum()) == int((k != -1).sum())
+    _segsum_equal(got, ref.segsum_partials(k, v, tile))
+    assert int(got[2].sum()) == int((k != -1).sum())
 
 
 def test_segsum_tile_of_equal_keys(dev):
     k = torch.full((512,), 9, dtype=torch.int32, device=dev)
     pk, ps, pc = kseg.segsum_partials(k, torch.ones(512, device=dev), 256)
-    assert pk.tolist()[::256] == [9, 9] and pc.tolist()[::256] == [256, 256]
-    assert int((pk != -1).sum()) == 2 and float(ps.sum()) == 512.0
+    assert pk.tolist() == [9, 9] and pc.tolist() == [256, 256] and ps.tolist() == [256.0, 256.0]
+
+
+@pytest.mark.parametrize("key_dtype", [np.int32, np.int64])
+def test_segsum_two_launches_are_identical(dev, key_dtype):
+    """2M rows: about a thousand chunks race through the look-back, and two
+    launches give the same bytes."""
+    keys, vals = _sorted_case(np.random.default_rng(7), 2_000_000, key_dtype)
+    k, v = _on(dev, keys), _on(dev, vals)
+    a, b = kseg.segsum_partials(k, v), kseg.segsum_partials(k, v)
+    _segsum_equal(a, b)
+    _segsum_equal(a, ref.segsum_partials(k, v, kseg.TILE))
+
+
+def test_segsum_one_key_over_a_million_rows(dev):
+    """The serial-add worst case: every tile one run of 256 rows."""
+    n = 1_000_000
+    k = torch.full((n,), 3, dtype=torch.int32, device=dev)
+    v = _on(dev, np.random.default_rng(1).normal(size=n).astype(np.float32))
+    got = kseg.segsum_partials(k, v)
+    assert got[0].shape == (-(-n // 256),) and int(got[2].sum()) == n
+    _segsum_equal(got, ref.segsum_partials(k, v, 256))
+
+
+@pytest.mark.parametrize("where", [1, 2047, 2048, 300_000, 499_999])
+def test_segsum_rejects_unsorted_keys(dev, where):
+    """One key below the one before it, inside a tile, at a tile edge, at a
+    chunk edge and at the end: the kernel raises, as its plain version does."""
+    keys = np.arange(500_000, dtype=np.int32) // 3
+    keys[where] = keys[where - 1] - 1
+    k, v = _on(dev, keys), torch.ones(keys.shape[0], device=dev)
+    for fn in (lambda: kseg.segsum_partials(k, v), lambda: ref.segsum_partials(k, v, 256)):
+        with pytest.raises(ValueError, match="not sorted"):
+            fn()
 
 
 def test_sort_group_bys_on_card_equal_cpu(dev):

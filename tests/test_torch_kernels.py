@@ -493,17 +493,27 @@ def _sorted_keys(seed, n):
     return keys, rng.normal(size=n).astype(np.float32)
 
 
+def _live(jax_out):
+    """The live slots of the reference's slot layout, in slot order: the
+    port's compact layout."""
+    jk, js, jc = (np.asarray(a) for a in jax_out)
+    live = jk != -1
+    return jk[live], js[live], jc[live]
+
+
 @pytest.mark.parametrize("n,tile", [(1, 256), (1000, 256), (4096, 256), (777, 64)])
 def test_segsum_partials_match_pallas_kernel(n, tile):
+    """The port's compact partials are the reference's live slots in slot
+    order: keys and counts exactly, sums to SUM_TOL."""
     keys, vals = _sorted_keys(n, n)
-    jk, js, jc = segsum_partials_pallas(jnp.asarray(keys), jnp.asarray(vals), tile=tile,
-                                        interpret=True)
+    jk, js, jc = _live(segsum_partials_pallas(jnp.asarray(keys), jnp.asarray(vals), tile=tile,
+                                              interpret=True))
     pk, ps, pc = tseg.segsum_partials(_t(keys), _t(vals), tile)  # the plain version
-    assert pk.shape == ps.shape == pc.shape == (-(-n // tile) * tile,)
+    assert pk.shape == ps.shape == pc.shape == jk.shape
     assert pc.dtype == torch.int32 and ps.dtype == torch.float32
     _eq(jk, pk)
     _eq(jc, pc)
-    np.testing.assert_allclose(ps.numpy(), np.asarray(js), **SUM_TOL)
+    np.testing.assert_allclose(ps.numpy(), js, **SUM_TOL)
     assert int(pc.sum()) == int((keys != -1).sum())
 
 
@@ -513,10 +523,64 @@ def test_segsum_partials_int64_keys_and_equal_tile():
     vals = np.ones(keys.shape[0], np.float32)
     pk, ps, pc = tref.segsum_partials(_t(keys), _t(vals), 256)
     assert pk.dtype == torch.int64
-    live = pk != -1
-    _eq(np.array([5, 1 << 40, 1 << 40, (1 << 40) + 1]), pk[live])
-    _eq(np.array([256, 256, 44, 1], np.int32), pc[live])
-    _eq(np.array([256, 256, 44, 1], np.float32), ps[live])
+    _eq(np.array([5, 1 << 40, 1 << 40, (1 << 40) + 1]), pk)
+    _eq(np.array([256, 256, 44, 1], np.int32), pc)
+    _eq(np.array([256, 256, 44, 1], np.float32), ps)
+
+
+def _segsum_edge(case):
+    """(keys, values, tile) of an edge case: offsets carried over many
+    chunks, one key over 50 tiles, sentinel rows only, negative keys that
+    are not the sentinel before the sentinel rows."""
+    rng = np.random.default_rng(len(case))
+    if case == "many_chunks":
+        keys, vals = _sorted_keys(5, 200_000)
+        return keys, vals, 64
+    if case == "one_key_50_tiles":
+        keys = np.r_[np.full(3, 2), np.full(50 * 256, 7), [9, 9]].astype(np.int32)
+    elif case == "sentinels_only":
+        keys = np.full(1000, -1, np.int32)
+    else:  # negative_keys
+        keys = np.r_[np.full(300, -9), np.full(5, -5), np.full(40, -1),
+                     np.repeat(np.arange(200), 3)].astype(np.int32)
+    return keys, rng.normal(size=keys.shape[0]).astype(np.float32), 256
+
+
+@pytest.mark.parametrize("case", ["many_chunks", "one_key_50_tiles", "sentinels_only",
+                                  "negative_keys"])
+def test_segsum_partials_edge_cases_match_pallas_kernel(case):
+    keys, vals, tile = _segsum_edge(case)
+    jk, js, jc = _live(segsum_partials_pallas(jnp.asarray(keys), jnp.asarray(vals), tile=tile,
+                                              interpret=True))
+    pk, ps, pc = tseg.segsum_partials(_t(keys), _t(vals), tile)
+    _eq(jk, pk)
+    _eq(jc, pc)
+    np.testing.assert_allclose(ps.numpy(), js, **SUM_TOL)
+    if case == "sentinels_only":
+        assert pk.shape == (0,)
+    if case == "one_key_50_tiles":
+        assert pc.tolist() == [3] + [253] + [256] * 49 + [3, 2]
+
+
+def test_segsum_partials_empty():
+    """No rows, no partials (the reference cannot lay out zero tiles)."""
+    for dtype in (torch.int32, torch.int64):
+        pk, ps, pc = tseg.segsum_partials(torch.zeros(0, dtype=dtype), torch.zeros(0), 256)
+        assert pk.shape == ps.shape == pc.shape == (0,) and pk.dtype == dtype
+    k, s, c = tops.groupby_sorted_sum(torch.zeros(0, dtype=torch.int32), torch.zeros(0), 8)
+    assert k.tolist() == [-1] * 8 and s.tolist() == [0.0] * 8 and int(c) == 0
+
+
+@pytest.mark.parametrize("keys", [[3, 2], [0, 0, 5, 4, 9], [-1, 4, -1], list(range(600)) + [7]])
+def test_segsum_partials_reject_unsorted_keys(keys):
+    """Unsorted rows raise: the reference re-sorts its partials and sums them
+    by key anyway; the port's combine does not sort, so it refuses them."""
+    k = torch.tensor(keys, dtype=torch.int32)
+    v = torch.ones(k.shape[0])
+    with pytest.raises(ValueError, match="not sorted"):
+        tseg.segsum_partials(k, v)
+    with pytest.raises(ValueError, match="not sorted"):
+        tops.groupby_sorted_sum(k, v, 16)
 
 
 def _groupjoin_inputs(seed, match_ratio=0.8, p_bits=4, cap=256):
@@ -569,9 +633,14 @@ def test_groupjoin_probe_agg_matches_jax_arms(sides):
         np.testing.assert_allclose(sums.numpy(), np.asarray(jsums), **SUM_TOL)
 
 
-@pytest.mark.parametrize("num_groups", [50, 400])
-def test_groupby_sorted_sum_matches_jax(num_groups):
-    keys, vals = _sorted_keys(3, 5000)
+@pytest.mark.parametrize("n,num_groups", [
+    pytest.param(5000, 50, id="50"), pytest.param(5000, 400, id="400"),
+    pytest.param(5000, 2000, id="5000-2000"), pytest.param(200_000, 1000, id="200000-1000"),
+    pytest.param(200_000, 40_000, id="200000-40000")])
+def test_groupby_sorted_sum_matches_jax(n, num_groups):
+    """Runs that cross tile edges merge; groups past num_groups are dropped
+    alike (the 200,000-row case has 783 tiles and about 33,000 runs)."""
+    keys, vals = _sorted_keys(3, n)
     n_runs = np.unique(keys[keys >= 0]).shape[0]
     for impl in ("pallas", "xla"):
         jk, js, jc = jops.groupby_sorted_sum(jnp.asarray(keys), jnp.asarray(vals), num_groups,
