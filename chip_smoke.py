@@ -39,6 +39,17 @@
    (h) the non-partitioned hash join (no kernel), equal to the numpy
        reference per key, with no failed insertion, beside PHJ-OM alone
        (with its phase times) and SMJ.
+   (m) the checked drivers: phj_join_checked naturally (one attempt, equal
+       row for row to the join), under overflow:phj@0 (19 bits, equal to
+       numpy per key) and under overflow:phj@0+1+2 (bits 18, 19, 20, then
+       the strategy:smj rung, equal row for row to (f)'s SMJ-OM);
+       groupjoin_checked from a quarter of the capacity (grown to the group
+       count rounded up to 64, equal to (d)); groupby_partition_checked
+       naturally and under overflow:groupby_partition@0 (equal to (b)'s
+       group-by per key); with each report's summary and the resilience
+       counters.
+   (n) the scatter group-by over the join output with the query's
+       aggregates, equal to the numpy reference.
 6. Holds each kernel against its plain PyTorch version on the card, at the
    shapes these paths give it (keys, layouts and counts exactly equal, float
    sums to a stated tolerance), and times the kernel, the plain version and
@@ -63,9 +74,19 @@
        (72,000,000 x 72,000,000 rows, keys uniform in [0, 18,000,000), int64
        payloads), with out_size the exact match total from numpy's per-key
        counts; per-key output counts and payload sums equal numpy's;
+   (l) the m:n partitioned hash join of J5, PHJ-OM and PHJ-UM (the plans'
+       passes and, for OM, two gathers; no probe kernel), each equal to
+       numpy per key and, as a multiset of (k, r1, s1) rows, to SMJ-OM
+       m:n's, with its phase times beside SMJ-OM m:n's warm time;
    (j) join sequences over a star schema with J2's row counts (a 60,000,000
        row fact table, four 15,000,000 row dimensions): PHJ-OM and SMJ-OM with
-       restore_order=True, equal to each other row for row and to numpy.
+       restore_order=True, equal to each other row for row and to numpy;
+   (n) the partition_hash, scatter and sort group-bys over a 60,000,000-row
+       table with keys (zipf(1.5) - 1) % 4096 and float32 values in [0, 1):
+       keys and counts equal to numpy, float32 sums within 2 x rows x 2^-24
+       relative of numpy's float64 sums, bit-identical from run to run, each
+       profiled warm; and what choose_groupby_strategy picks for it and for
+       J2's join output.
 Every phase prints its seconds.
 
 Prints one JSON line {"kernels": [...]} before the last line, and as the last
@@ -114,6 +135,13 @@ SMJ_LAUNCHES = dict.fromkeys(SP_LAUNCHES, 0) | {"lower_bound": 1}
 # the radix sort plan of int32 keys: four 8-bit rank passes
 RADIX_LAUNCHES = dict.fromkeys(SP_LAUNCHES, 0) | {"block_histograms": 4, "partition_ranks": 4}
 NO_LAUNCHES = dict.fromkeys(SP_LAUNCHES, 0)
+# the skewed group-by table: benchmarks/groupby_bench.py's skew shape (keys
+# (zipf(1.5) - 1) % 4096, int32; float32 values uniform in [0, 1)) at
+# lineitem's SF10 row count
+SKEW_ROWS = 60_000_000
+SKEW_KEYS = 4096
+SKEW_GROUPS = 8192
+SKEW_AGGS = {"v": "sum", "k": "count"}
 # J2's row counts for the star schema (benchmarks/joins.py: n_dim = n_fact / 4)
 STAR = dict(n_fact=60_000_000, n_dim=15_000_000, n_joins=4)
 # float32 sums of int64 payloads below 2^31 against exact int64 sums: each
@@ -251,12 +279,15 @@ def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from the repository")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import (group_aggregate, join, join_sequence, phj_groupjoin,
-                                  phj_overflowed, table_from_numpy, table_to_numpy)
+    from repro_torch.core import (choose_groupby_strategy, group_aggregate,
+                                  groupby_partition_checked, groupjoin_checked, join,
+                                  join_sequence, phj_groupjoin, phj_join_checked, phj_overflowed,
+                                  table_from_numpy, table_to_numpy)
     from repro_torch.core import groupby as gb
     from repro_torch.core import groupjoin as gj
     from repro_torch.core import hash_join as hj
     from repro_torch.core import primitives as prim
+    from repro_torch.core.table import Table
     from repro_torch.data.relgen import _payload, generate_star, generate_tpc
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import gather as kgather
@@ -265,6 +296,8 @@ def main() -> None:
     from repro_torch.kernels import merge_join as kmj
     from repro_torch.kernels import radix_partition as krp
     from repro_torch.kernels import segsum as kseg
+    from repro_torch.obs import metrics
+    from repro_torch.resilience import faults
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -469,7 +502,7 @@ def main() -> None:
     log(f"(d) fused group-join: {m} groups equal to numpy (keys, counts; float32 sums within "
         f"2 * rows * 2^-24 relative, max relative error {json.dumps(gj_err)}), to the torch "
         f"arm with the sort strategy ({gt_s:.3f} s), and bit-identical on a second run")
-    del Gj, Gt, Gjh
+    del Gt, Gjh  # Gj stays for (m)
     clock.done("5d group-join")
 
     # -- 5e. the sort group-bys over the join output ------------------------
@@ -522,8 +555,7 @@ def main() -> None:
         for name in Tm.column_names:
             check(torch.equal(Tm[name], other[name]), f"SMJ-OM column {name} differs from {what}")
     del Tu, Tt, other
-    check_join(Tm, cm, "SMJ-OM")
-    del Tm
+    check_join(Tm, cm, "SMJ-OM")  # Tm stays for (m)
     smj_phases = {"om": {}, "um": {}}
     smj(phases=smj_phases["om"])
     smj("gfur", phases=smj_phases["um"])
@@ -574,6 +606,109 @@ def main() -> None:
         f"{smj_um_info['warm_s_median_of_3']:.6f} s, NPHJ "
         f"{nphj_info['warm_s_median_of_3']:.6f} s")
     clock.done("5h non-partitioned hash join")
+
+    # -- 5m. the checked drivers on J2 ---------------------------------------
+    def resilience_counters():
+        return {k: v for k, v in metrics.snapshot().items()
+                if k.startswith(("resilience.", "core."))}
+
+    def under(spec, fn):
+        """fn() with the fault spec in force (none for an empty spec)."""
+        def run():
+            with faults.inject(spec):
+                return fn()
+        return run
+
+    def same_rows(a, b, what):
+        check(a.column_names == b.column_names, f"{what}: columns differ")
+        for name in a.column_names:
+            check(torch.equal(a[name], b[name]), f"{what}: column {name} differs")
+
+    def by_key(G, count):
+        """A group-by's valid rows sorted by key, column by column."""
+        c = int(count)
+        order = torch.sort(G["k"][:c]).indices
+        return Table({n: G[n][:c][order] for n in G.column_names})
+
+    base_counters = resilience_counters()
+    ((Tc, cc), rep), _ = run_path("j2_phj_join_checked", lambda: phj_join_checked(
+        R, S, with_report=True), phj_launches)
+    check(len(rep.attempts) == 1 and rep.converged, f"phj_join_checked: {rep.summary()}")
+    check(int(cc) == int(cnt), "phj_join_checked: valid count differs from the join's")
+    same_rows(Tc, T, "phj_join_checked against join(algorithm='phj')")
+    log(f"(m) {rep.summary()}: equal row for row to join(R, S, algorithm='phj')")
+    ((Tc, cc), rep), _ = run_path("j2_phj_join_checked_overflow_at_0", under(
+        "overflow:phj@0", lambda: phj_join_checked(R, S, with_report=True)), phj_launches)
+    check(len(rep.attempts) == 2 and rep.final_knobs["partition_bits"] == p_bits + 1,
+          f"phj_join_checked under overflow:phj@0: {rep.summary()} {rep.final_knobs}")
+    check_join(Tc, cc, "phj_join_checked at 19 bits")
+    log(f"(m) overflow:phj@0: {rep.summary()}, {rep.final_knobs['partition_bits']} bits; "
+        f"equal to numpy per key")
+    ((Tc, cc), rep), _ = run_path("j2_phj_join_checked_overflow_at_0_1_2", under(
+        "overflow:phj@0+1+2", lambda: phj_join_checked(R, S, with_report=True)), SMJ_LAUNCHES)
+    bits = [a.knobs["partition_bits"] for a in rep.attempts]
+    steps = [a.step for a in rep.attempts]
+    check(bits == [p_bits, p_bits + 1, p_bits + 2, p_bits + 2] and p_bits + 2 == 20
+          and steps == ["partition_bits", "partition_bits", "strategy:smj", ""]
+          and rep.final_knobs["algorithm"] == "smj",
+          f"phj_join_checked under overflow:phj@0+1+2: {rep.summary()} bits {bits}")
+    check(int(cc) == int(cm), "phj_join_checked's SMJ rung: valid count differs from SMJ-OM's")
+    same_rows(Tc, Tm, "phj_join_checked's SMJ rung against SMJ-OM (f)")
+    log(f"(m) overflow:phj@0+1+2: {rep.summary()}, bits {bits}; attempt 3 on the "
+        f"strategy:smj rung, equal row for row to (f)'s SMJ-OM with one lower_bound launch")
+    del Tc, Tm
+
+    req_cap = -(-m // 64) * 64
+    ((Gc, gcc), rep), _ = run_path("j2_groupjoin_checked", lambda: groupjoin_checked(
+        R, S, key="k", group_key="k", aggs=GJ_AGGS, num_groups=N_GROUPS // 4,
+        with_report=True), GJ_LAUNCHES)
+    check(rep.final_knobs["num_groups"] == req_cap and rep.steps_applied == {"num_groups": 1},
+          f"groupjoin_checked: {rep.summary()} {rep.final_knobs}, expected capacity {req_cap}")
+    check(int(gcc) == m and Gc.num_rows == req_cap, "groupjoin_checked: groups differ")
+    for name in Gj.column_names:
+        check(torch.equal(Gc[name][:m], Gj[name][:m]),
+              f"groupjoin_checked: column {name} differs from (d)'s group-join")
+    log(f"(m) groupjoin_checked from capacity {N_GROUPS // 4}: {rep.summary()}, capacity "
+        f"{req_cap} ({m} groups rounded up to 64); its {m} rows equal (d)'s")
+    del Gc, Gj
+
+    G_sorted = by_key(G, gcnt)
+    for spec in ("", "overflow:groupby_partition@0"):
+        ((Gq, gqc), rep), _ = run_path(
+            f"j2_groupby_partition_checked{'_' + spec.replace(':', '_').replace('@', '_at_') if spec else ''}",
+            under(spec, lambda: groupby_partition_checked(
+                T, key="k", aggs=AGGS, num_groups=N_GROUPS, with_report=True)),
+            dict(NO_LAUNCHES, block_histograms=2 if not spec else 3,
+                 partition_ranks=2 if not spec else 3))
+        check(int(gqc) == int(gcnt), f"groupby_partition_checked {spec}: group count differs")
+        if not spec:
+            check(len(rep.attempts) == 1, f"groupby_partition_checked: {rep.summary()}")
+            same_rows(Gq, G, "groupby_partition_checked against (b)'s group-by")
+        else:
+            check(len(rep.attempts) == 2 and rep.steps_applied == {"partition_bits": 1},
+                  f"groupby_partition_checked {spec}: {rep.summary()}")
+            same_rows(by_key(Gq, gqc), G_sorted, f"groupby_partition_checked {spec}, per key")
+        log(f"(m) groupby_partition_checked {spec or 'natural'}: {rep.summary()}, "
+            f"{rep.final_knobs}; equal {'row for row' if not spec else 'per key'} to (b)'s")
+    del Gq, G_sorted
+    moved = {k: v - base_counters.get(k, 0) for k, v in resilience_counters().items()}
+    log(json.dumps({"j2_checked_counters": resilience_counters(), "moved_in_5m": moved}))
+    clock.done("5m checked drivers")
+
+    # -- 5n. the scatter group-by over J2's join output -----------------------
+    (Gx, gxc), _ = run_path("j2_groupby_scatter", lambda: group_aggregate(
+        T, key="k", aggs=AGGS, num_groups=N_GROUPS, strategy="scatter"), NO_LAUNCHES)
+    Gxh = table_to_numpy(Gx.head(int(gxc)))
+    check(int(gxc) == m and np.array_equal(Gxh["k"], keys_ref), "scatter: keys differ from numpy")
+    check(np.array_equal(Gxh["r2_count"], rows_k), "scatter: counts differ from numpy")
+    check(np.array_equal(Gxh["s1_sum"], s1_ref[keys_ref]), "scatter: sums of s1 differ")
+    check(np.array_equal(Gxh["r1_max"], r1_ref[keys_ref]), "scatter: max of r1 differs")
+    check(Gxh["s1_sum"].dtype == np.int64, "scatter: the sum lost the int64 payload type")
+    del Gx, Gxh
+    j2_pick = choose_groupby_strategy(n_s, m, key_min=0, key_max=n_r - 1)
+    log(f"(n) scatter group-by over the join output: {m} groups equal to numpy (int64); "
+        f"choose_groupby_strategy picks {json.dumps(j2_pick)}")
+    clock.done("5n scatter group-by")
     path_launches = dict(launches, probe_agg=gj_info["launches"]["probe_agg"],
                          segsum_partials=sp_info["launches"]["segsum_partials"],
                          lower_bound=smj_info["launches"]["lower_bound"])
@@ -852,26 +987,75 @@ def main() -> None:
         return join(R5, S5, algorithm="smj", pattern="gftr", mode="mn", out_size=total,
                     phases=phases)
 
+    def check_j5(T5, c5, what):
+        """A J5 m:n join against numpy: per-key rows and payload sums."""
+        check(int(c5) == total, f"{what}: {int(c5)} rows != {total}")
+        k5 = T5["k"][:total].long()
+        check(bool((k5 >= 0).all()) and bool((k5 < n_keys).all()), f"{what}: keys out of range")
+        got5 = {"rows": torch.bincount(k5, minlength=n_keys)}
+        for c in ("r1", "s1"):
+            got5[c] = torch.zeros(n_keys, dtype=torch.int64, device=k5.device).index_add_(
+                0, k5, T5[c][:total])
+            check(T5[c].dtype == torch.int64, f"{what}: {c} lost the int64 payload type")
+        for c, want in want5.items():
+            check(np.array_equal(got5[c].cpu().numpy(), want),
+                  f"{what}: {c} per key differs from numpy")
+
     (T5, c5), j5_info = run_path("j5_smj_mn", smj_mn, NO_LAUNCHES)
-    check(int(c5) == total, f"J5: {int(c5)} rows != {total}")
-    k5 = T5["k"].long()
-    check(bool((k5 >= 0).all()) and bool((k5 < n_keys).all()), "J5: join keys out of range")
-    got5 = {"rows": torch.bincount(k5, minlength=n_keys)}
-    for c in ("r1", "s1"):
-        got5[c] = torch.zeros(n_keys, dtype=torch.int64, device=k5.device).index_add_(
-            0, k5, T5[c])
-        check(T5[c].dtype == torch.int64, f"J5: {c} lost the int64 payload type")
-    for c, want in want5.items():
-        check(np.array_equal(got5[c].cpu().numpy(), want), f"J5: {c} per key differs from numpy")
-    del T5, k5, got5
+    check_j5(T5, c5, "J5 SMJ-OM")
     j5_phases = {}
     smj_mn(phases=j5_phases)
     log(json.dumps({"j5_smj_mn_phases_s": j5_phases}))
     log(f"(i) J5 m:n SMJ-OM: {total} rows; rows, sums of r1 and of s1 per key equal to numpy "
         f"(cR * cS, sum(r1) * cS, sum(s1) * cR in int64)")
+    clock.done("7i J5 m:n sort-merge join")
+
+    # -- 7l. the m:n partitioned hash join of J5: PHJ-OM and PHJ-UM -----------
+    over5, bits5 = phj_overflowed(R5)
+    check(not over5, "J5: a build partition overflows its 256-row block at the default bits")
+    log(f"phj_overflowed(J5's R): False at {bits5} partition bits")
+
+    def lex_sorted(J, c):
+        """The (k, r1, s1) columns of J's first c rows sorted by (k, r1, s1):
+        three stable sorts, least significant first."""
+        cols = [J[n][:c] for n in ("k", "r1", "s1")]
+        perm = torch.arange(c, device=cols[0].device)
+        for col in reversed(cols):
+            perm = perm[torch.sort(col[perm], stable=True).indices]
+        return [col[perm] for col in cols]
+
+    smj_rows = lex_sorted(T5, total)
+    del T5
+    # 2^20 + 1 partitions: three plan passes per side, each one histogram
+    # and one rank launch; GFTR gathers r1 and s1; no probe kernel
+    check(bits5 == 20, f"J5: {bits5} partition bits, expected 20")
+    passes5 = 6
+    phj5_launches = {"om": dict(NO_LAUNCHES, block_histograms=passes5, partition_ranks=passes5,
+                                clustered_gather=2),
+                     "um": dict(NO_LAUNCHES, block_histograms=passes5, partition_ranks=passes5)}
+    for mat, pattern in (("om", "gftr"), ("um", "gfur")):
+        def phj_mn(phases=None, pattern=pattern):
+            return join(R5, S5, algorithm="phj", pattern=pattern, mode="mn", out_size=total,
+                        phases=phases)
+
+        (P5, p5c), p5_info = run_path(f"j5_phj_{mat}_mn", phj_mn, phj5_launches[mat])
+        check_j5(P5, p5c, f"J5 PHJ-{mat.upper()}")
+        for a, b, name in zip(lex_sorted(P5, total), smj_rows, ("k", "r1", "s1")):
+            check(torch.equal(a, b), f"J5 PHJ-{mat.upper()}: sorted column {name} differs from "
+                  "SMJ-OM m:n's: the rows are not the same multiset")
+        del P5, a, b
+        p5_phases = {}
+        phj_mn(phases=p5_phases)
+        log(json.dumps({f"j5_phj_{mat}_mn_phases_s": p5_phases,
+                        "launches": p5_info["launches"]}))
+        log(f"(l) J5 m:n PHJ-{mat.upper()}: {total} rows, equal to numpy per key and to SMJ-OM "
+            f"m:n as a multiset of (k, r1, s1) rows; warm {p5_info['warm_s_median_of_3']:.6f} s "
+            f"against SMJ-OM m:n {j5_info['warm_s_median_of_3']:.6f} s (medians of 3); "
+            f"launches {json.dumps(p5_info['launches'])}")
+    del smj_rows
     del R5, S5
     torch.cuda.empty_cache()
-    clock.done("7i J5 m:n sort-merge join")
+    clock.done("7l J5 m:n partitioned hash join")
 
     # -- 7j. join sequences over a star schema -------------------------------
     fact_n, dims_n, fks, dks = generate_star(**STAR)
@@ -907,6 +1091,48 @@ def main() -> None:
         f"equal row for row and to numpy; columns {list(a.column_names)}")
     del a, b, seqs, fact, dims
     clock.done("7j join sequences")
+
+    # -- 7n. partition_hash, scatter and sort over a skewed 60M-row table -----
+    # groupby_bench's skew shape at lineitem's SF10 row count
+    rng = np.random.default_rng(0)
+    gk_n = ((rng.zipf(1.5, SKEW_ROWS) - 1) % SKEW_KEYS).astype(np.int32)
+    gv_n = rng.random(SKEW_ROWS, dtype=np.float32)
+    skew = table_from_numpy({"k": gk_n, "v": gv_n})
+    cnt_ref = np.bincount(gk_n, minlength=SKEW_KEYS)
+    sum_ref = np.bincount(gk_n, weights=gv_n.astype(np.float64), minlength=SKEW_KEYS)
+    keys_sk = np.flatnonzero(cnt_ref)
+    del gk_n, gv_n
+    skew_pick = choose_groupby_strategy(SKEW_ROWS, SKEW_KEYS, key_min=0, key_max=SKEW_KEYS - 1,
+                                        zipf=1.5)
+    skew_times = {}
+    for strategy in ("partition_hash", "scatter", "sort"):
+        def gby(strategy=strategy):
+            return group_aggregate(skew, key="k", aggs=SKEW_AGGS, num_groups=SKEW_GROUPS,
+                                   strategy=strategy)
+
+        (Gs1, c1), info = run_path(f"skew_groupby_{strategy}", gby, NO_LAUNCHES)
+        skew_times[strategy] = info["warm_s_median_of_3"]
+        log(json.dumps({f"skew_groupby_{strategy}_profile": profile_run(gby)}))
+        Gs2, c2 = gby()
+        check(int(c1) == int(c2) and all(torch.equal(Gs1[n], Gs2[n]) for n in Gs1.column_names),
+              f"{strategy} over the skewed table: a second run is not bit-identical")
+        Gh = table_to_numpy(Gs1.head(int(c1)))
+        check(int(c1) == keys_sk.shape[0] and np.array_equal(Gh["k"], keys_sk),
+              f"{strategy} over the skewed table: keys differ from numpy")
+        check(np.array_equal(Gh["k_count"], cnt_ref[keys_sk]),
+              f"{strategy} over the skewed table: counts differ from numpy")
+        check(Gh["v_sum"].dtype == np.float32, f"{strategy}: float32 sums expected")
+        err = check_f32_sums(Gh["v_sum"], sum_ref[keys_sk], cnt_ref[keys_sk],
+                             f"{strategy} over the skewed table")
+        log(f"(n) {strategy} over {SKEW_ROWS} zipf(1.5) rows: {int(c1)} groups, keys and "
+            f"counts equal to numpy, float32 sums within 2 * rows * 2^-24 relative of "
+            f"numpy's float64 sums (max relative error {err}), bit-identical on a second run")
+        del Gs1, Gs2, Gh
+    log(json.dumps({"skew_groupby_warm_s_median_of_3": skew_times,
+                    "choose_groupby_strategy": {"j2_join_output": j2_pick,
+                                                "skewed_table": skew_pick}}))
+    del skew
+    clock.done("7n skewed group-bys")
 
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

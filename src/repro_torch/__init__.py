@@ -2,10 +2,12 @@
 NVIDIA Hopper card. It imports torch and numpy only; the JAX package stays
 the reference it is tested against.
 
-Ported so far: the partitioned hash join with GFTR materialization (PHJ-OM),
-the fused group-join, and the sort, sort_pallas and partition group-bys
-(`core`), with the sort-free radix partition planner, the co-partition
-probe, the clustered gather, the fused probe + aggregate and the per-tile
-segmented sums as hand-written CUDA kernels (`kernels`), and the relational
-workload generator (`data`).
+Ported so far: the joins (the partitioned hash join, pk_fk and m:n; the
+sort-merge join; the non-partitioned hash join; GFTR and GFUR
+materialization; join sequences), the fused group-join, the five group-by
+strategies and the checked drivers on the escalation ladder (`core`), with
+the eight hand-written CUDA kernels that stand for the reference's Pallas
+kernels (`kernels`), the escalation runtime and fault injection
+(`resilience`), the metrics registry (`obs`), and the relational workload
+generator (`data`).
 """

@@ -22,7 +22,9 @@ probe-side (S) column; the join key itself is allowed.
 Static-shape contract: `num_groups` is the accumulator capacity; the output
 is (Table(group_key + f"{col}_{op}" columns), valid_count), padded with
 KEY_SENTINEL, like `group_aggregate`. Groups beyond capacity are dropped;
-`groupjoin_overflowed` checks both capacities beforehand.
+`groupjoin_overflowed` checks both capacities beforehand, and
+`groupjoin_checked` escalates partition bits, then the capacity, so the
+fused result is always exact.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch
 
 from ..kernels import ops as kops
 from ..kernels.common import resolve_impl
+from ..resilience import EscalationStep, Ladder
 from . import primitives as prim
 from .groupby import AGG_OPS, group_aggregate
 from .hash_join import (BUILD_BLOCK, _digits, blocked_partitions, build_blocks,
@@ -220,3 +223,67 @@ def groupjoin_overflowed(R: Table, S: Table, *, key: str = "k", group_key: str,
     required = groupjoin_required_groups(S, key=key, group_key=group_key,
                                          agg_strategy=agg_strategy)
     return build_ovf, p_bits, required > num_groups, required
+
+
+def groupjoin_checked(R: Table, S: Table, *, key: str = "k", group_key: str,
+                      aggs: dict[str, str], num_groups: int, max_extra_bits: int = 4,
+                      build_block: int = BUILD_BLOCK, max_attempts: int = 8,
+                      with_report: bool = False, **kw):
+    """phj_groupjoin on the escalation ladder, covering both capacities the
+    fused path pads to: first add partition bits while a build co-partition
+    overflows its block, then grow the accumulator when `num_groups` would
+    drop groups, to the required count (the distinct group keys, or the
+    dense key domain for the 'scatter' strategy) rounded up to a multiple
+    of 64. Both checks are host-side reductions; the re-run uses strictly
+    larger shapes, so the result is exact, or `EscalationExhausted` is
+    raised.
+
+    `with_report=True` also returns the `EscalationReport`."""
+    hash_keys = kw.get("hash_keys", True)
+    agg_strategy = kw.get("agg_strategy", "sort")
+    base_bits = kw.pop("partition_bits", None)
+    if base_bits is None:
+        base_bits = choose_partition_bits(R.num_rows, build_block)
+    knobs = {"partition_bits": base_bits, "num_groups": num_groups}
+
+    def check(kn):
+        build_ovf, _, group_ovf, required = groupjoin_overflowed(
+            R, S, key=key, group_key=group_key, num_groups=kn["num_groups"],
+            build_block=build_block, partition_bits=kn["partition_bits"],
+            hash_keys=hash_keys, agg_strategy=agg_strategy)
+        parts = []
+        if build_ovf:
+            parts.append(f"build partition > {build_block} rows")
+        if group_ovf:
+            parts.append(f"{required} groups > capacity {kn['num_groups']}")
+        return not parts, "; ".join(parts), {"build_ovf": build_ovf, "required": required}
+
+    def grow_bits(kn, diag):
+        # yields to the capacity rung on a pure accumulator overflow (more
+        # fan-out cannot make capacity)
+        if kn["partition_bits"] >= 20:
+            return None
+        if diag is not None and not diag["build_ovf"] and diag["required"] > kn["num_groups"]:
+            return None
+        return {**kn, "partition_bits": kn["partition_bits"] + 1}
+
+    def grow_capacity(kn, diag):
+        required = diag["required"] if diag else 0
+        if diag is not None and diag["build_ovf"] and required <= kn["num_groups"]:
+            return None  # capacity cannot fix a build-block overflow
+        if required > kn["num_groups"]:
+            target = -(-required // 64) * 64
+        else:  # a forced overflow with nothing actually wrong: double
+            target = max(64, kn["num_groups"] * 2)
+        return {**kn, "num_groups": target}
+
+    ladder = Ladder("groupjoin", [
+        EscalationStep("partition_bits", grow_bits, max_times=max_extra_bits),
+        EscalationStep("num_groups", grow_capacity, max_times=3),
+    ], max_attempts=max_attempts)
+    report = ladder.resolve(knobs, check)
+    kn = report.final_knobs
+    out = phj_groupjoin(R, S, key=key, group_key=group_key, aggs=aggs,
+                        num_groups=kn["num_groups"], build_block=build_block,
+                        partition_bits=kn["partition_bits"], **kw)
+    return (out, report) if with_report else out

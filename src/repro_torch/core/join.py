@@ -38,7 +38,8 @@ def join(
     """Inner equi-join of R (build / PK side) and S (probe / FK side).
     Returns (Table, valid_count). Shorthand names from the paper: SMJ-UM =
     (smj, gfur), SMJ-OM = (smj, gftr), PHJ-UM = (phj, gfur), PHJ-OM = (phj,
-    gftr); NPHJ has one materialization. PHJ's m:n mode is not ported."""
+    gftr); NPHJ has one materialization and pk_fk mode only. mode="mn"
+    allows duplicate build keys; its out_size defaults to 2 * S.num_rows."""
     if algorithm == "smj":
         return smj_join(R, S, key=key, pattern=pattern, out_size=out_size, mode=mode, **kw)
     if algorithm == "phj":

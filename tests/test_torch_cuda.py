@@ -852,6 +852,110 @@ def test_nphj_and_join_sequences_on_card_equal_cpu(dev):
             assert torch.equal(a[name], b[name].cpu()), name
 
 
+@pytest.mark.parametrize("pattern", ["gftr", "gfur"])
+def test_phj_mn_on_card_equals_cpu(dev, pattern):
+    """m:n PHJ at J5 scale 1/256 (281,250 x 281,250 rows) on the card against
+    the same join on the CPU, row for row: the plans' passes and, for GFTR,
+    one gather per payload column; no probe kernel."""
+    R, S, mode = relgen.generate_tpc("J5", scale=1 / 256, payload_bytes=8)
+    n_keys = R["k"].shape[0] // 4  # J5's keys are uniform in [0, n_r / 4)
+    total = int((np.bincount(R["k"], minlength=n_keys)
+                 * np.bincount(S["k"], minlength=n_keys)).sum())
+    out = []
+    for where in ("cpu", "cuda"):
+        ops.reset_launch_counts()
+        J, c = T.join(T.table_from_numpy(R, device=where), T.table_from_numpy(S, device=where),
+                      algorithm="phj", pattern=pattern, mode=mode, out_size=total)
+        got = ops.launch_counts()
+        if where == "cuda":
+            assert got["block_histograms"] == got["partition_ranks"] > 0
+            assert got["clustered_gather"] == (2 if pattern == "gftr" else 0)
+            assert got["hash_probe"] == got["probe_agg"] == 0
+        out.append((T.table_to_numpy(J), int(c)))
+    (a, ca), (b, cb) = out
+    assert ca == cb == total
+    for name in a:
+        np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+
+
+def _ladder_call(ladder, where, rng_seed=0):
+    """One checked driver on the reference's test inputs (n_r = 256,
+    n_s = 1,024): (result table, count, report)."""
+    rng = np.random.default_rng(rng_seed)
+    R = {"k": rng.permutation(256).astype(np.int32),
+         "v": rng.integers(0, 99, 256).astype(np.int32)}
+    S = {"k": rng.integers(0, 256, 1024).astype(np.int32),
+         "w": rng.integers(0, 9, 1024).astype(np.int32)}
+    Rt, St = T.table_from_numpy(R, device=where), T.table_from_numpy(S, device=where)
+    if ladder == "phj":
+        (t, c), rep = T.phj_join_checked(Rt, St, with_report=True)
+    elif ladder == "phj_smj":  # 18 bits, forced past 20: the sort-merge rung
+        (t, c), rep = T.phj_join_checked(Rt, St, partition_bits=18, with_report=True)
+    elif ladder == "groupjoin":
+        (t, c), rep = T.groupjoin_checked(Rt, St, group_key="k", aggs={"w": "sum"},
+                                          num_groups=64, with_report=True)
+    else:
+        (t, c), rep = T.groupby_partition_checked(St, aggs={"w": "sum"}, num_groups=256,
+                                                  with_report=True)
+    return T.table_to_numpy(t), int(c), rep
+
+
+@pytest.mark.parametrize("ladder,spec", [
+    ("phj", ""), ("phj", "overflow:phj@0"), ("phj_smj", "overflow:phj@0+1+2"),
+    ("groupjoin", ""), ("groupjoin", "overflow:groupjoin@0"),
+    ("groupby_partition", ""), ("groupby_partition", "overflow:groupby_partition@0"),
+    ("groupby_partition", "overflow:groupby_partition@all")])
+def test_checked_ladders_on_card_equal_cpu(dev, ladder, spec):
+    """Each checked driver on the card and on the CPU under the same fault
+    spec: the same report, and the same valid rows (the group-join's fused
+    arm gives float32 sums of small integers, exact here)."""
+    from repro_torch.resilience import EscalationExhausted, faults
+
+    runs = []
+    for where in ("cpu", "cuda"):
+        with faults.inject(spec):
+            try:
+                runs.append(_ladder_call(ladder, where))
+            except EscalationExhausted as e:
+                runs.append(e.report.as_dict())
+    if isinstance(runs[0], dict):
+        assert spec.endswith("@all") and runs[0] == runs[1]
+        return
+    (a, ca, ra), (b, cb, rb) = runs
+    assert ra.as_dict() == rb.as_dict() and ca == cb
+    if ladder == "phj_smj":
+        assert ra.final_knobs["algorithm"] == "smj"
+        assert [x.knobs["partition_bits"] for x in ra.attempts] == [18, 19, 20, 20]
+    rows_a = sorted(zip(*[a[n][:ca].astype(np.int64).tolist() for n in sorted(a)]))
+    rows_b = sorted(zip(*[b[n][:cb].astype(np.int64).tolist() for n in sorted(b)]))
+    assert rows_a == rows_b
+
+
+def test_partition_hash_and_scatter_on_card_equal_cpu(dev):
+    """groupby_bench's skew shape at 300,000 rows: keys and counts equal to
+    the CPU's, float32 sums within the parity tolerance, and a second run on
+    the card equal bit for bit."""
+    rng = np.random.default_rng(5)
+    n = 300_000
+    d = {"k": ((rng.zipf(1.5, n) - 1) % 4096).astype(np.int32),
+         "v": rng.random(n).astype(np.float32),
+         "w": rng.integers(-1000, 1000, n).astype(np.int32)}
+    aggs = {"v": "sum", "w": "max", "k": "count"}
+    for strategy in ("partition_hash", "scatter"):
+        runs = [T.group_aggregate(T.table_from_numpy(d, device=where), aggs=aggs,
+                                  num_groups=8192, strategy=strategy)
+                for where in ("cpu", "cuda", "cuda")]
+        (a, ca), (b, cb), (b2, cb2) = runs
+        assert int(ca) == int(cb) == int(cb2)
+        for name in a.column_names:
+            assert torch.equal(b[name], b2[name]), name
+            x, y = a[name].numpy(), b[name].cpu().numpy()
+            if x.dtype.kind == "f":
+                np.testing.assert_allclose(y, x, rtol=1e-5, atol=2 * 256 * np.finfo(np.float32).eps)
+            else:
+                np.testing.assert_array_equal(x, y, err_msg=name)
+
+
 # ---------------------------------------------------------------------------
 # the per-tile histograms
 # ---------------------------------------------------------------------------

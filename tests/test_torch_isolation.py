@@ -34,6 +34,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "import repro_torch.core.sort_merge, repro_torch.core.nphj, repro_torch.data.relgen\n"
             "import repro_torch.core.phases, repro_torch.core.table\n"
             "import repro_torch.kernels.merge_join, repro_torch.kernels.histogram\n"
+            "import repro_torch.obs, repro_torch.obs.metrics, repro_torch.resilience\n"
+            "import repro_torch.resilience.faults, repro_torch.resilience.escalation\n"
+            "import repro_torch.core.groupby, repro_torch.core.groupjoin\n"
+            "import repro_torch.core.hash_join\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

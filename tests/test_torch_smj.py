@@ -208,8 +208,10 @@ def test_nphj_rejects_mn_and_phj_mn_is_not_ported():
     R = _tt({"k": np.arange(4, dtype=np.int32)})
     with pytest.raises(ValueError, match="pk_fk only"):
         T.join(R, R, algorithm="nphj", mode="mn")
-    with pytest.raises(NotImplementedError):
-        T.join(R, R, algorithm="phj", mode="mn")
+    # PHJ's m:n mode is ported: the self-join of four distinct keys
+    _assert_equal(J.join(_jt({"k": np.arange(4, dtype=np.int32)}),
+                         _jt({"k": np.arange(4, dtype=np.int32)}), algorithm="phj", mode="mn"),
+                  T.join(R, R, algorithm="phj", mode="mn"))
     with pytest.raises(ValueError, match="unknown algorithm"):
         T.join(R, R, algorithm="hash")
 
