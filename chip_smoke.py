@@ -50,6 +50,15 @@
        counters.
    (n) the scatter group-by over the join output with the query's
        aggregates, equal to the numpy reference.
+   (o) Q18 through the engine (`repro_torch.engine`): Catalog({orders: R,
+       lineitem: S}), scan("lineitem").join(scan("orders"), key="k")
+       .group_by("k", s1=sum, r1=max, r2=count), optimized with the profile
+       measured on the card (printed at 65,536 and at 16,777,216 rows, with
+       the plan each gives), the stats sketch and optimize times; run warm,
+       checked, with PHJ-OM and SMJ-OM forced, and in 4 morsels, each equal
+       per key to (b)'s group-by and to numpy, with launches that fit the
+       plan's nodes and no degradation; beside the same operators called
+       directly. The calibration store is a file of this run alone.
 6. Holds each kernel against its plain PyTorch version on the card, at the
    shapes these paths give it (keys, layouts and counts exactly equal, float
    sums to a stated tolerance), and times the kernel, the plain version and
@@ -87,6 +96,10 @@
        relative of numpy's float64 sums, bit-identical from run to run, each
        profiled warm; and what choose_groupby_strategy picks for it and for
        J2's join output.
+   (p) the star query through the engine: four joins of the fact table to
+       its dimensions, group_by("fk0", p1_0=sum), the top 8 by that sum;
+       its plans under both profiles, warm time and launches, and its top 8
+       equal to numpy's.
 Every phase prints its seconds.
 
 Prints one JSON line {"kernels": [...]} before the last line, and as the last
@@ -98,6 +111,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -279,6 +293,8 @@ def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from the repository")
     sys.path.insert(0, str(ROOT / "src"))
+    import dataclasses
+
     from repro_torch.core import (choose_groupby_strategy, group_aggregate,
                                   groupby_partition_checked, groupjoin_checked, join,
                                   join_sequence, phj_groupjoin, phj_join_checked, phj_overflowed,
@@ -296,8 +312,12 @@ def main() -> None:
     from repro_torch.kernels import merge_join as kmj
     from repro_torch.kernels import radix_partition as krp
     from repro_torch.kernels import segsum as kseg
+    from repro_torch.core.planner import PrimitiveProfile
+    from repro_torch.engine import (Catalog, calibrated_profile, detect_budget_bytes, optimize,
+                                    run_morsels, scan)
+    from repro_torch.engine import physical as PH
     from repro_torch.obs import metrics
-    from repro_torch.resilience import faults
+    from repro_torch.resilience import escalation, faults
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -709,6 +729,186 @@ def main() -> None:
     log(f"(n) scatter group-by over the join output: {m} groups equal to numpy (int64); "
         f"choose_groupby_strategy picks {json.dumps(j2_pick)}")
     clock.done("5n scatter group-by")
+    # -- the engine's plans: which kernels each node may and must launch ------
+    def plan_nodes(node):
+        yield node
+        for c in node.children():
+            yield from plan_nodes(c)
+
+    def check_plan_launches(name, plan, got, checked=False, reports=()):
+        """Each node's kernels: a PHJ join launches the plan passes, one probe
+        per pk_fk join and, for GFTR, gathers; a checked run's PHJ join may
+        take the ladder's SMJ rung, and each report that ends there trades
+        a probe for a lower bound; an SMJ pk_fk join one lower bound; a
+        group-join the plan passes and the probe (the engine's accumulator
+        arm, never probe_agg); a partition group-by its plan passes, a
+        sort_pallas one the segmented sums. A kernel no node runs must not
+        launch."""
+        need, may = {}, set()
+
+        def add(kernels, required):
+            may.update(kernels)
+            for k in required:
+                need[k] = need.get(k, 0) + 1
+
+        plan_passes = ("block_histograms", "partition_ranks")
+        for node in plan_nodes(plan.root):
+            if isinstance(node, PH.PJoin) and node.algorithm == "phj":
+                add(plan_passes + ("hash_probe", "clustered_gather")
+                    + (("lower_bound",) if checked else ()),
+                    plan_passes + (("hash_probe",) if node.mode == "pk_fk" else ())
+                    + (("clustered_gather",) if node.pattern == "gftr" else ()))
+            elif isinstance(node, PH.PJoin) and node.algorithm == "smj":
+                add(("lower_bound",), ("lower_bound",) if node.mode == "pk_fk" else ())
+            elif isinstance(node, PH.PGroupJoin):
+                add(plan_passes + ("hash_probe",), plan_passes + ("hash_probe",))
+            if isinstance(node, (PH.PGroupBy, PH.PGroupJoin)):
+                strategy = getattr(node, "strategy", None) or node.agg_strategy
+                if strategy == "partition":
+                    add(plan_passes, plan_passes)
+                elif strategy == "sort_pallas":
+                    add(("segsum_partials",), ("segsum_partials",))
+        smj_rungs = sum(r.operator == "phj" and r.final_knobs.get("algorithm") == "smj"
+                        for r in reports)
+        if smj_rungs:
+            need["lower_bound"] = need.get("lower_bound", 0) + smj_rungs
+            need["hash_probe"] = max(need.get("hash_probe", 0) - smj_rungs, 0)
+        for k, v in got.items():
+            if k in need:
+                check(v >= need[k], f"{name}: kernel {k} launched {v} times; the plan's nodes "
+                      f"need at least {need[k]}")
+            elif k not in may:
+                check(v == 0, f"{name}: kernel {k} launched {v} times; no node of the plan "
+                      "runs it")
+
+    def plan_shape(node):
+        """The optimizer's choices in a plan: node kinds, join order and
+        orientation, algorithms, patterns and strategies."""
+        own = {PH.PScan: lambda n: (n.table,),
+               PH.PJoin: lambda n: (n.algorithm, n.pattern, n.mode, n.build_key),
+               PH.PGroupBy: lambda n: (n.strategy, n.agg_kw),
+               PH.PGroupJoin: lambda n: (n.agg_strategy, n.agg_kw)}.get(type(node))
+        return (type(node).__name__, own(node) if own else (),
+                tuple(plan_shape(c) for c in node.children()))
+
+    def direct_run(plan, tables):
+        """The plan's operators called directly, for a group-by over a join of
+        two base tables or a group-join of two; None for other plans."""
+        root = plan.root
+        j = root.child if isinstance(root, PH.PGroupBy) else root
+        if not (isinstance(j, (PH.PJoin, PH.PGroupJoin)) and isinstance(j.build, PH.PScan)
+                and isinstance(j.probe, PH.PScan) and j.build_key == j.probe_key):
+            return None
+        bt, pt = tables[j.build.table], tables[j.probe.table]
+        cols = tuple(c for c, _ in root.aggs)
+        if isinstance(root, PH.PGroupJoin):
+            def run():
+                return phj_groupjoin(
+                    bt.select(tuple(dict.fromkeys((j.build_key,) + tuple(c for c in cols
+                                                                        if c in bt)))),
+                    pt.select(tuple(dict.fromkeys((j.probe_key, root.probe_group_key)
+                                                  + tuple(c for c in cols if c in pt)))),
+                    key=j.probe_key, group_key=root.probe_group_key, aggs=dict(root.aggs),
+                    num_groups=root.capacity, agg_strategy=root.agg_strategy,
+                    agg_kw=dict(root.agg_kw) or None, fused=False)
+            return run
+
+        def run():
+            T, _ = join(bt, pt, key=j.probe_key, algorithm=j.algorithm, pattern=j.pattern,
+                        out_size=j.capacity, mode=j.mode)
+            return group_aggregate(T.select((root.key,) + cols), key=root.key,
+                                   aggs=dict(root.aggs), num_groups=root.capacity,
+                                   strategy=root.strategy, **dict(root.agg_kw))
+        return run
+
+    # -- 5o. TPC-H Q18 through the engine ------------------------------------
+    def degradations():
+        return metrics.counter("resilience.plan_degradations").value
+
+    def engine_path(name, plan, fn=None, runs=3, checked=False):
+        """A plan's run (or fn()): cold, then counters, escalation reports and
+        degradations read around one warm run, then the median of `runs`
+        warm runs; the launches must fit the plan's nodes and nothing may
+        degrade."""
+        fn = fn or plan.run
+        cold = timed(torch, fn)[1]
+        deg0 = degradations()
+        seq0 = escalation.current_seq()
+        ops.reset_launch_counts()
+        out, warm = timed(torch, fn)
+        got = ops.launch_counts()
+        reports = escalation.recent_reports(seq0)
+        walls = sorted([warm] + [timed(torch, fn)[1] for _ in range(runs - 1)])
+        check(degradations() == deg0, f"{name}: the executor degraded the plan "
+              f"({escalation.recent_degradations()[-1:]})")
+        check_plan_launches(name, plan, got, checked, reports)
+        info = {"cold_s": cold, "warm_s": warm, f"warm_s_median_of_{runs}": walls[runs // 2],
+                "launches": got}
+        log(json.dumps({name: info}))
+        return out, info
+
+    def q18_equal(Ge, gce, what):
+        """An engine result of Q18 against (b)'s group-by, per key and column,
+        and against numpy's per-key rows, sums of s1 and maxima of r1."""
+        check(int(gce) == m, f"{what}: {int(gce)} groups != {m}")
+        a, b = by_key(Ge, gce), by_key(G, gcnt)
+        for name in b.column_names:
+            check(torch.equal(a[name], b[name]), f"{what}: column {name} differs from the "
+                  "direct operators' group-by (per key)")
+        h = table_to_numpy(a)
+        check(np.array_equal(h["k"], keys_ref), f"{what}: keys differ from numpy")
+        check(np.array_equal(h["r2_count"], rows_k), f"{what}: counts differ from numpy")
+        check(np.array_equal(h["s1_sum"], s1_ref[keys_ref]), f"{what}: sums of s1 differ")
+        check(np.array_equal(h["r1_max"], r1_ref[keys_ref]), f"{what}: max of r1 differs")
+        check(h["s1_sum"].dtype == np.int64, f"{what}: the sum lost the int64 payload type")
+
+    q18 = scan("lineitem").join(scan("orders"), key="k").group_by("k", **AGGS)
+    # a calibration store of this run alone, so that the profile at 65,536
+    # rows is measured here and not read from what an earlier run stored
+    calib_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_calibration_")
+    os.environ["REPRO_CALIBRATION_PATH"] = os.path.join(calib_dir.name, "CALIBRATION.json")
+    prof16, prof16_s = timed(torch, lambda: calibrated_profile(device=dev))
+    prof24 = PrimitiveProfile.measure(n=1 << 24, device=dev)
+    log(json.dumps({"calibrated_profile": {"n_65536": dataclasses.asdict(prof16),
+                                           "n_65536_measure_s": prof16_s,
+                                           "n_16777216": dataclasses.asdict(prof24)}}))
+    cat = Catalog({"orders": R, "lineitem": S})
+    plan, cold_opt_s = timed(torch, lambda: optimize(q18, cat, measure_profile=True))
+    _, warm_opt_s = timed(torch, lambda: optimize(q18, cat, measure_profile=True))
+    plan24 = optimize(q18, cat, profile=prof24)
+    log(f"(o) Q18 plan (profile at 65,536 rows), the plan the phase runs:\n{plan.explain()}")
+    log(f"(o) Q18 plan (profile at 16,777,216 rows):\n{plan24.explain()}")
+    log(json.dumps({"q18_optimize": {
+        "cold_s": cold_opt_s, "warm_s": warm_opt_s, "stats_sketch_s": cold_opt_s - warm_opt_s,
+        "plan_run": plan_shape(plan.root),
+        "same_choice_at_both_profiles": plan_shape(plan.root) == plan_shape(plan24.root),
+        "budget_bytes": detect_budget_bytes(dev)}}))
+    (Ge, gce), q18_info = engine_path("q18_engine", plan)
+    q18_equal(Ge, gce, "Q18 engine")
+    log(json.dumps({"q18_engine_profile": profile_run(plan.run)}))
+    d = direct_run(plan, {"orders": R, "lineitem": S})
+    if d is not None:
+        _, d_info = engine_path("q18_direct_operators", plan, d)
+        log(f"(o) Q18 engine {q18_info['warm_s_median_of_3']:.6f} s against the same operators "
+            f"called directly {d_info['warm_s_median_of_3']:.6f} s (medians of 3): overhead "
+            f"{q18_info['warm_s_median_of_3'] - d_info['warm_s_median_of_3']:.6f} s")
+    (Gk, gck), _ = engine_path("q18_engine_checked", plan, lambda: plan.run(checked=True),
+                               checked=True)
+    q18_equal(Gk, gck, "Q18 engine, checked")
+    del Gk
+    for force in (("phj", "gftr"), ("smj", "gftr")):
+        fplan = optimize(q18, cat, measure_profile=True, force_join=force)
+        log(f"(o) Q18 forced {force}:\n{fplan.explain()}")
+        (Gf, gcf), _ = engine_path(f"q18_engine_{force[0]}_{force[1]}", fplan)
+        q18_equal(Gf, gcf, f"Q18 engine forced {force}")
+        del Gf
+    (Gm, gcm), _ = engine_path("q18_engine_4_morsels", plan,
+                               lambda: run_morsels(plan, factor=4), runs=1)
+    q18_equal(Gm, gcm, "Q18 engine in 4 morsels")
+    del Gm, Ge, cat
+    log(f"(o) Q18 through the engine: the optimizer's plan, checked, forced PHJ-OM and SMJ-OM and "
+        f"4 morsels equal the direct operators and numpy per key; no degradation")
+    clock.done("5o Q18 through the engine")
     path_launches = dict(launches, probe_agg=gj_info["launches"]["probe_agg"],
                          segsum_partials=sp_info["launches"]["segsum_partials"],
                          lower_bound=smj_info["launches"]["lower_bound"])
@@ -1089,8 +1289,45 @@ def main() -> None:
               f"join sequence: p{i}_0 is not its foreign key's payload")
     log(f"(j) join sequences of {n_j} joins over {STAR['n_fact']} fact rows: PHJ-OM and SMJ-OM "
         f"equal row for row and to numpy; columns {list(a.column_names)}")
-    del a, b, seqs, fact, dims
+    del a, b, seqs
     clock.done("7j join sequences")
+
+    # -- 7p. the star query through the engine --------------------------------
+    star_cat = Catalog({"fact": fact, **{f"dim{i}": d for i, d in enumerate(dims)}})
+    sq = scan("fact")
+    for i in range(n_j):
+        sq = sq.join(scan(f"dim{i}"), left_key=fks[i], right_key=dks[i])
+    sq = sq.group_by("fk0", p1_0="sum").order_by("p1_0_sum", limit=8, descending=True)
+    splan, s_opt_s = timed(torch, lambda: optimize(sq, star_cat, measure_profile=True))
+    splan24 = optimize(sq, star_cat, profile=prof24)
+    log(f"(p) star query plan (profile at 65,536 rows), the plan the phase runs:\n"
+        f"{splan.explain()}")
+    log(f"(p) star query plan (profile at 16,777,216 rows):\n{splan24.explain()}")
+    (St, stc), s_info = engine_path("star_engine", splan)
+    log(json.dumps({"star_engine_profile": profile_run(splan.run)}))
+    log(json.dumps({"star_optimize": {"cold_s": s_opt_s, "plan_run": plan_shape(splan.root),
+                                      "same_choice_at_both_profiles":
+                                      plan_shape(splan.root) == plan_shape(splan24.root)}}))
+    # numpy: each fact row's p1_0 is its fk1's payload; int32 sums per fk0
+    # wrap as the engine's int32 sums do
+    p1 = _payload(fact_n["fk1"], 7, np.int32)
+    sums = np.bincount(fact_n["fk0"], weights=p1.astype(np.float64),
+                       minlength=STAR["n_dim"]).astype(np.int64).astype(np.int32)
+    present_f = np.bincount(fact_n["fk0"], minlength=STAR["n_dim"]) > 0
+    top8 = np.sort(sums[present_f])[::-1][:8]
+    Sh = table_to_numpy(St.head(int(stc)))
+    check(int(stc) == 8, f"star query: {int(stc)} rows, expected 8")
+    check(np.array_equal(Sh["p1_0_sum"], top8), f"star query: top 8 sums {Sh['p1_0_sum']} "
+          f"!= numpy's {top8}")
+    check(present_f[Sh["fk0"]].all() and np.array_equal(sums[Sh["fk0"]], Sh["p1_0_sum"])
+          and np.unique(Sh["fk0"]).size == 8, "star query: a top-8 key's sum differs from numpy")
+    log(f"(p) star query through the engine: top 8 of {int(present_f.sum())} groups equal to "
+        f"numpy (int32 sums); warm {s_info['warm_s_median_of_3']:.6f} s (median of 3), "
+        f"launches {json.dumps(s_info['launches'])}")
+    del St, Sh, star_cat, fact, dims, p1, sums, present_f
+    clock.done("7p star query through the engine")
+    del os.environ["REPRO_CALIBRATION_PATH"]
+    calib_dir.cleanup()
 
     # -- 7n. partition_hash, scatter and sort over a skewed 60M-row table -----
     # groupby_bench's skew shape at lineitem's SF10 row count

@@ -5,9 +5,12 @@ the reference it is tested against.
 Ported so far: the joins (the partitioned hash join, pk_fk and m:n; the
 sort-merge join; the non-partitioned hash join; GFTR and GFUR
 materialization; join sequences), the fused group-join, the five group-by
-strategies and the checked drivers on the escalation ladder (`core`), with
-the eight hand-written CUDA kernels that stand for the reference's Pallas
-kernels (`kernels`), the escalation runtime and fault injection
-(`resilience`), the metrics registry (`obs`), and the relational workload
-generator (`data`).
+strategies, the checked drivers on the escalation ladder, the join planner
+and the GFUR/GFTR memory model (`core`), with the eight hand-written CUDA
+kernels that stand for the reference's Pallas kernels (`kernels`); the
+cost-based query engine: logical plans, statistics, the optimizer and its
+physical plans, the executor and the memory budget (`engine`); the
+escalation runtime and fault injection (`resilience`), the metrics
+registry, residuals and the calibration store (`obs`), and the relational
+workload generator (`data`).
 """

@@ -15,6 +15,9 @@ into a group-keyed accumulator:
     rows get KEY_SENTINEL group keys; probe-side inputs cost one planned
     gather each, build-side inputs one gather through the matched virtual
     IDs (GFTR); then `group_aggregate` with `agg_strategy`.
+  * fused=False on the card: the same accumulation, with each row's match
+    from the probe kernel (hash_probe): every op, the 'torch' arm's result
+    types (integer sums stay exact).
 
 Scope: inner pk_fk joins (build keys unique). The group key must be a
 probe-side (S) column; the join key itself is allowed.
@@ -65,6 +68,7 @@ def phj_groupjoin(
     hash_keys: bool = True,
     probe_impl: str | None = None,  # "torch" | "cuda" | None (by device)
     agg_kw: dict | None = None,
+    fused: bool = True,
 ):
     """Fused pk_fk join + grouped aggregation. Returns (Table, valid_count).
 
@@ -75,7 +79,8 @@ def phj_groupjoin(
     over integer group keys, with float32 sums and means and int32 counts;
     min and max raise there (use probe_impl='torch'). The 'torch' arm takes
     every op and any `agg_strategy` of `group_aggregate`, whose result types
-    it keeps."""
+    it keeps. fused=False runs the 'torch' arm's accumulation with the
+    probe on `probe_impl`'s arm: the probe kernel on the card."""
     if group_key not in S.column_names:
         raise ValueError(
             f"group_key {group_key!r} must be a probe-side column "
@@ -87,7 +92,7 @@ def phj_groupjoin(
         if col not in S.column_names and col not in R.column_names:
             raise ValueError(f"agg column {col!r} in neither relation")
     impl = resolve_impl(probe_impl, S[key])
-    if impl == "cuda":
+    if impl == "cuda" and fused:
         for col, op in aggs.items():
             if op not in FUSED_OPS:
                 raise ValueError(
@@ -125,7 +130,7 @@ def phj_groupjoin(
         return probe_part[col]
 
     gk = probe_col(group_key)
-    if impl == "cuda":
+    if impl == "cuda" and fused:
         bkeys, _, _ = build_blocks(kr, off_r, sz_r, build_block)
         return _groupjoin_cuda(R, S, aggs, num_groups, bkeys, off_r, sz_r, perm_r, probe_col,
                                ks, gk, off_s, sz_s, group_key)
@@ -133,7 +138,7 @@ def phj_groupjoin(
     # vid_r is -1 where nothing matched (the reference's plain probe gives
     # off_r[part] there): every fetch below is masked by `matched` either way
     vid_r, matched = kops.hash_probe(kr, off_r, sz_r, ks, off_s, sz_s, build_block,
-                                     impl="torch")
+                                     impl=impl)
     gk_masked = torch.where(matched, gk, KEY_SENTINEL)
 
     # Per-row aggregate inputs in partitioned probe order: the rows the

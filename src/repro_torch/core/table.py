@@ -19,8 +19,8 @@ import torch
 
 from ..kernels.common import KEY_SENTINEL
 
-__all__ = ["KEY_SENTINEL", "Table", "concat_tables", "nonempty", "table_from_numpy",
-           "table_to_numpy"]
+__all__ = ["KEY_SENTINEL", "Table", "concat_tables", "nonempty", "table_from_dict",
+           "table_from_numpy", "table_to_numpy"]
 
 
 @dataclasses.dataclass
@@ -99,6 +99,18 @@ def table_from_numpy(cols: Mapping[str, np.ndarray], device="cuda") -> Table:
     holding copies of the numpy columns, dtypes kept."""
     return Table({k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                   for k, v in cols.items()})
+
+
+def table_from_dict(d: Mapping[str, torch.Tensor | np.ndarray], device=None) -> Table:
+    """A Table of the given columns: tensors stay where they are (or move to
+    `device` when it is given); numpy arrays go to `device`, the card unless
+    the caller asks for another."""
+    def col(v):
+        if isinstance(v, torch.Tensor):
+            return v if device is None else v.to(device)
+        return torch.from_numpy(np.ascontiguousarray(v)).to(device or "cuda")
+
+    return Table({k: col(v) for k, v in d.items()})
 
 
 def table_to_numpy(table: Table) -> dict[str, np.ndarray]:

@@ -8,7 +8,9 @@ them changes. `build_all` starts one nvcc per source, all at once.
 
 Every C entry point launches on the card and stream it is given (the card
 that holds its tensors and PyTorch's current stream there, `launch_on`) and
-returns `cudaGetLastError()`; `check` raises when that is not 0.
+returns `cudaGetLastError()`; `check` raises when that is not 0. A kernel
+that cannot be built (no toolkit, nvcc fails) or launched raises
+`KernelError`, which the engine never answers by re-planning around it.
 """
 from __future__ import annotations
 
@@ -50,11 +52,16 @@ RESTYPES = {"segsum_partials_state_words": ctypes.c_longlong}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel could not be built or launched: a fault of the
+    port, never a condition to degrade around."""
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found: set CUDA_HOME or put nvcc on PATH")
+        raise KernelError("no CUDA toolkit found: set CUDA_HOME or put nvcc on PATH")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
@@ -86,7 +93,7 @@ def _finish(name: str, job) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu (rc={proc.returncode}):\n{log}")
+        raise KernelError(f"nvcc failed for {name}.cu (rc={proc.returncode}):\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
 
 
@@ -126,4 +133,4 @@ def launch_on(t) -> tuple[int, int]:
 def check(lib: ctypes.CDLL, name: str, err: int) -> None:
     if err != 0:
         msg = lib.kernel_error_string(err).decode()
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err} ({msg})")
+        raise KernelError(f"CUDA kernel {name} failed to launch: error {err} ({msg})")

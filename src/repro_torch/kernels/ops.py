@@ -5,11 +5,15 @@ the histogram take `impl` in {"torch", "cuda"} or None. None resolves by
 the tensor's device: a CUDA tensor gets the kernel, a CPU tensor the plain
 arm; "cuda" on a CPU tensor raises (`common.resolve_impl`). The group-join's probe-aggregate and the
 sorted group sums have one arm, the kernel wrapper, which runs the
-kernel's plain version for CPU tensors. A kernel that fails to build or
-launch raises: no arm catches it and carries on.
+kernel's plain version for CPU tensors. Whatever a kernel arm raises (a
+wrapper's rejection of its inputs, a failed build or launch, an error the
+card reports) reaches the caller as `KernelError`, apart from running out
+of memory: no arm catches it and carries on, and no caller can mistake a
+broken kernel for a condition to re-plan around.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -19,6 +23,7 @@ from . import histogram as _histogram
 from . import merge_join as _merge_join
 from . import ref
 from . import segsum as _segsum
+from ._build import KernelError
 from .common import KERNELS, KEY_SENTINEL, LAUNCHES, ceil_div, resolve_impl
 from .hash_probe import hash_probe as _hash_probe_kernel
 from .hash_probe import layout_probe_blocks
@@ -39,6 +44,22 @@ def partition_plan_impl() -> str | None:
     return env
 
 
+@contextlib.contextmanager
+def _kernel_arm(name: str, on: bool = True):
+    """Around a kernel arm (where `on`): any error but KernelError and
+    running out of memory, which the engine answers with smaller morsels,
+    becomes a KernelError naming the kernel."""
+    if not on:
+        yield
+        return
+    try:
+        yield
+    except (KernelError, torch.cuda.OutOfMemoryError):
+        raise
+    except Exception as e:  # noqa: BLE001 - every other failure is the kernel's
+        raise KernelError(f"{name}: {type(e).__name__}: {e}") from e
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel."""
     return dict(LAUNCHES)
@@ -57,7 +78,8 @@ def histogram(digits: torch.Tensor, num_bins: int, impl: str | None = None) -> t
     count nowhere. impl='cuda': the histogram kernel; 'torch': its plain
     version (a bincount)."""
     if resolve_impl(impl, digits) == "cuda":
-        return _histogram.histogram(digits, num_bins)
+        with _kernel_arm("histogram"):
+            return _histogram.histogram(digits, num_bins)
     return ref.histogram(digits, num_bins)
 
 
@@ -75,7 +97,8 @@ def partition_plan(digits: torch.Tensor, num_partitions: int, *, carry=(),
     tensors: the stable partition permutation is unique."""
     impl = resolve_impl(impl, digits)
     if impl == "cuda":
-        return _partition_plan_radix(digits, num_partitions, carry=carry)
+        with _kernel_arm("partition_plan"):
+            return _partition_plan_radix(digits, num_partitions, carry=carry)
     return _partition_plan_torch(digits, num_partitions, carry)
 
 
@@ -115,7 +138,8 @@ def merge_lower_bound(build_sorted: torch.Tensor, probe_sorted: torch.Tensor,
     in [0, n_build]. impl='cuda': the lower_bound kernel, right for any span
     (no span check, no fallback); 'torch': its plain version (searchsorted)."""
     if resolve_impl(impl, probe_sorted, build_sorted) == "cuda":
-        return _merge_join.lower_bound(build_sorted, probe_sorted)
+        with _kernel_arm("lower_bound"):
+            return _merge_join.lower_bound(build_sorted, probe_sorted)
     return ref.lower_bound(build_sorted, probe_sorted)
 
 
@@ -137,7 +161,8 @@ def hash_probe(build_keys_part: torch.Tensor, off_r: torch.Tensor, sz_r: torch.T
     args = (build_keys_part, off_r, sz_r, probe_keys_part, probe_off, probe_sz, build_block)
     if impl == "torch":
         return ref.hash_probe(*args)
-    return _hash_probe_kernel(*(a.contiguous() for a in args[:-1]), build_block)
+    with _kernel_arm("hash_probe"):
+        return _hash_probe_kernel(*(a.contiguous() for a in args[:-1]), build_block)
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +174,8 @@ def clustered_gather(src: torch.Tensor, idx: torch.Tensor, impl: str | None = No
     impl = resolve_impl(impl, src, idx)
     if impl == "torch":
         return ref.clustered_gather(src, idx)
-    return _gather.clustered_gather(src.contiguous(), idx.to(torch.int32).contiguous())
+    with _kernel_arm("clustered_gather"):
+        return _gather.clustered_gather(src.contiguous(), idx.to(torch.int32).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -273,29 +299,30 @@ def groupjoin_probe_agg(bkeys: torch.Tensor, bvals: torch.Tensor | None,
         raise ValueError(f"unknown impl {impl!r}; allowed: cuda (CPU tensors take the "
                          "kernel's plain version)")
     resolve_impl(impl, probe_keys_part)
-    P, cap_s = bkeys.shape
-    n = probe_keys_part.shape[0]
-    dev = probe_keys_part.device
-    if bvals is None:
-        bvals = torch.zeros((P, 0, cap_s), dtype=torch.float32, device=dev)
-    if pv_part is None:
-        pv_part = torch.zeros((0, n), dtype=torch.float32, device=dev)
-    pk, part, src_idx = layout_probe_blocks(probe_keys_part, probe_off, probe_sz, cap_s,
-                                            ceil_div(n, cap_s) + P)
-    pad = src_idx >= 0
-    safe = src_idx.clamp(0, max(n - 1, 0))
-    gkb = torch.where(pad, gk_part[safe], KEY_SENTINEL)
-    # (B, Cp, capS): every probe value column laid out with the same block map
-    pvb = torch.where(pad[:, None, :], pv_part.to(torch.float32)[:, safe].permute(1, 0, 2),
-                      0.0).contiguous()
-    del safe
-    pkeys, psums, pcounts = _probe_agg_kernel(bkeys.contiguous(),
-                                              bvals.to(torch.float32).contiguous(), pk, gkb,
-                                              pvb, part, col_sides)
-    del pk, part, src_idx, gkb, pvb
-    return _combine_group_partials(pkeys.reshape(-1),
-                                   [psums[:, c].reshape(-1) for c in range(len(col_sides))],
-                                   pcounts.reshape(-1), num_groups, gk_part.dtype)
+    with _kernel_arm("probe_agg", probe_keys_part.is_cuda):
+        P, cap_s = bkeys.shape
+        n = probe_keys_part.shape[0]
+        dev = probe_keys_part.device
+        if bvals is None:
+            bvals = torch.zeros((P, 0, cap_s), dtype=torch.float32, device=dev)
+        if pv_part is None:
+            pv_part = torch.zeros((0, n), dtype=torch.float32, device=dev)
+        pk, part, src_idx = layout_probe_blocks(probe_keys_part, probe_off, probe_sz, cap_s,
+                                                ceil_div(n, cap_s) + P)
+        pad = src_idx >= 0
+        safe = src_idx.clamp(0, max(n - 1, 0))
+        gkb = torch.where(pad, gk_part[safe], KEY_SENTINEL)
+        # (B, Cp, capS): every probe value column laid out with the same block map
+        pvb = torch.where(pad[:, None, :], pv_part.to(torch.float32)[:, safe].permute(1, 0, 2),
+                          0.0).contiguous()
+        del safe
+        pkeys, psums, pcounts = _probe_agg_kernel(bkeys.contiguous(),
+                                                  bvals.to(torch.float32).contiguous(), pk, gkb,
+                                                  pvb, part, col_sides)
+        del pk, part, src_idx, gkb, pvb
+        return _combine_group_partials(pkeys.reshape(-1),
+                                       [psums[:, c].reshape(-1) for c in range(len(col_sides))],
+                                       pcounts.reshape(-1), num_groups, gk_part.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -310,9 +337,10 @@ def groupby_sorted_sum(sorted_keys: torch.Tensor, values: torch.Tensor, num_grou
 
     The reference re-sorts its partials (slot layout, sentinel slots among
     them), so it also sums unsorted rows by key; here unsorted keys raise
-    ValueError (`segsum_partials`)."""
-    pk, ps, _ = _segsum.segsum_partials(sorted_keys.contiguous(),
-                                        values.to(torch.float32).contiguous())
+    ValueError (`segsum_partials`), a KernelError on the card."""
+    with _kernel_arm("segsum_partials", sorted_keys.is_cuda):
+        pk, ps, _ = _segsum.segsum_partials(sorted_keys.contiguous(),
+                                            values.to(torch.float32).contiguous())
     if pk.shape[0] == 0:
         return (torch.full((num_groups,), KEY_SENTINEL, dtype=pk.dtype, device=pk.device),
                 torch.zeros(num_groups, dtype=torch.float32, device=pk.device),

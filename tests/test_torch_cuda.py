@@ -205,6 +205,27 @@ def test_probe_wrapper_rejects_what_the_kernel_does_not_take(dev):
         kprobe.hash_probe(*args[:2], args[2][:-1], *args[3:], 256)
 
 
+def test_kernel_arms_raise_kernel_error_for_every_failure(dev):
+    """Through `ops`, whatever a kernel arm raises on card tensors is a
+    KernelError naming the kernel, the wrapper's own type kept as its cause,
+    so the engine can never re-plan around a kernel that failed."""
+    from repro_torch.kernels._build import KernelError
+
+    args = [_on(dev, a) for a in _probe_edge("plain", 256)]
+    i32 = torch.zeros(8, dtype=torch.int32, device=dev)
+    unsorted = torch.tensor([3, 1, 2], dtype=torch.int32, device=dev)
+    for name, call, cause in (
+            ("hash_probe", lambda: ops.hash_probe(*args, 12289, "cuda"), ValueError),
+            ("histogram", lambda: ops.histogram(i32, 0, impl="cuda"), ValueError),
+            ("lower_bound", lambda: ops.merge_lower_bound(i32.long(), i32, impl="cuda"),
+             TypeError),
+            ("segsum_partials", lambda: ops.groupby_sorted_sum(unsorted, unsorted.float(), 4),
+             ValueError)):
+        with pytest.raises(KernelError, match=name) as err:
+            call()
+        assert isinstance(err.value.__cause__, cause), name
+
+
 def test_phj_join_and_join_sequence_probe_arms_equal(dev, monkeypatch):
     """phj_join and a join sequence with the probe kernel against the same
     calls on the probe's plain arm (probe_impl='torch'; the sequence, which
@@ -1053,3 +1074,56 @@ def test_kernels_launch_on_their_tensors_card(dev):
                     torch.testing.assert_close(g, w, **SUM_TOL)
                 else:
                     assert torch.equal(g, w), name
+
+
+# ---------------------------------------------------------------------------
+# the engine on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("checked", [False, True])
+def test_engine_two_joins_and_group_by_on_card(dev, checked):
+    """A two-join star plan with a group-by through the engine: the same
+    plan as on the CPU (one explicit profile), the same rows, and kernel
+    launches that fit its nodes — the plan passes, one probe per PHJ join,
+    a gather per GFTR join, and for a group-join the probe feeding the
+    node's accumulator (never probe_agg, as the JAX package's engine never
+    runs its fused kernel) — with no degradation."""
+    from repro_torch.core.planner import PrimitiveProfile
+    from repro_torch.engine import Catalog, optimize, scan
+    from repro_torch.engine import physical as PH
+    from repro_torch.obs import metrics
+
+    fact, dims, _, _ = relgen.generate_star(400_000, 100_000, 2, seed=3)
+    q = (scan("fact").join(scan("dim0"), left_key="fk0", right_key="k0")
+         .join(scan("dim1"), left_key="fk1", right_key="k1")
+         .group_by("fk0", p1_0="sum", p0_0="count"))
+    prof = PrimitiveProfile(seq_bw=2.1e11, sort_pass_bw=3.3e10, partition_pass_bw=5.7e10,
+                            unclustered_penalty=7.5, clustered_penalty=1.4)
+    plans = {}
+    for d in ("cpu", dev):
+        tabs = {"fact": fact, "dim0": dims[0], "dim1": dims[1]}
+        cat = Catalog({n: T.table_from_numpy(t, device=d) for n, t in tabs.items()})
+        plans[d] = optimize(q, cat, profile=prof)
+    assert plans[dev].explain() == plans["cpu"].explain()
+    deg = metrics.counter("resilience.plan_degradations").value
+    ops.reset_launch_counts()
+    g, c = plans[dev].run(checked=checked)
+    got = ops.launch_counts()
+    assert metrics.counter("resilience.plan_degradations").value == deg
+    want_g, want_c = plans["cpu"].run()
+    assert int(c) == int(want_c)
+    order, want_order = torch.sort(g["fk0"][:int(c)]).indices, torch.sort(
+        want_g["fk0"][:int(c)]).indices
+    for name in want_g.column_names:
+        assert torch.equal(g[name][:int(c)][order].cpu(), want_g[name][:int(c)][want_order]), name
+    nodes, stack = [], [plans[dev].root]
+    while stack:
+        nodes.append(stack.pop())
+        stack.extend(nodes[-1].children())
+    joins = [n for n in nodes if isinstance(n, PH.PJoin) and n.algorithm == "phj"]
+    gjs = [n for n in nodes if isinstance(n, PH.PGroupJoin)]
+    assert joins or gjs
+    assert got["block_histograms"] == got["partition_ranks"] > 0
+    assert got["hash_probe"] == len(joins) + len(gjs)
+    assert got["probe_agg"] == 0
+    assert got["clustered_gather"] >= sum(n.pattern == "gftr" for n in joins)
+    assert got["lower_bound"] == got["segsum_partials"] == got["histogram"] == 0

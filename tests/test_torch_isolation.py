@@ -37,7 +37,12 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "import repro_torch.obs, repro_torch.obs.metrics, repro_torch.resilience\n"
             "import repro_torch.resilience.faults, repro_torch.resilience.escalation\n"
             "import repro_torch.core.groupby, repro_torch.core.groupjoin\n"
-            "import repro_torch.core.hash_join\n"
+            "import repro_torch.core.hash_join, repro_torch.core.planner\n"
+            "import repro_torch.core.memmodel\n"
+            "import repro_torch.engine, repro_torch.engine.logical, repro_torch.engine.stats\n"
+            "import repro_torch.engine.physical, repro_torch.engine.executor\n"
+            "import repro_torch.engine.membudget, repro_torch.obs.calibration\n"
+            "import repro_torch.obs.residuals\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
