@@ -58,7 +58,25 @@
        checked, with PHJ-OM and SMJ-OM forced, and in 4 morsels, each equal
        per key to (b)'s group-by and to numpy, with launches that fit the
        plan's nodes and no degradation; beside the same operators called
-       directly. The calibration store is a file of this run alone.
+       directly. The calibration store is a file of this run alone. The
+       untraced runs allocate no trace span.
+   (q) a trace of (o)'s Q18 plan: `run(trace=True)` (per node the median of
+       3 CUDA-event timed runs) equal to the untraced run; the span table,
+       the spans' sum against the untraced run and the trace's overhead
+       bound; the residuals fed into the run's calibration store and the
+       Perfetto JSON written beside it (under TMPDIR).
+   (r) the run auditor on Q18's plan: each node's priced contract against
+       the ops its run dispatched (no violation), `explain(verify=True)`,
+       and `plan_peak_bytes` within 5% of max_memory_allocated over one run
+       of the plan (plus its inputs).
+   (s) the query server on the card's memory budget: Q18 on J2, then on a
+       second J2-shaped dataset (14,000,000 x 56,000,000 rows, seed 1) in
+       the same capacity buckets (one signature, one plan optimized, a
+       cache hit); two Q18 in one tick under 1.5x Q18's bytes ticket (one
+       runs, one is deferred and runs); Q18 under 0.6x the ticket (morsels);
+       each answer equal per key to numpy and to the same plan run
+       directly; launches that fit the served plan; per request the plan,
+       queue, run and total seconds, the path, the morsels and the ticket.
 6. Holds each kernel against its plain PyTorch version on the card, at the
    shapes these paths give it (keys, layouts and counts exactly equal, float
    sums to a stated tolerance), and times the kernel, the plain version and
@@ -99,8 +117,17 @@
    (p) the star query through the engine: four joins of the fact table to
        its dimensions, group_by("fk0", p1_0=sum), the top 8 by that sum;
        its plans under both profiles, warm time and launches, and its top 8
-       equal to numpy's.
-Every phase prints its seconds.
+       equal to numpy's; then (r) its audit and peak bytes as for Q18, and
+       (s) the same query served by (s)'s server, its top 8 equal to numpy's
+       and to its plan run directly; the server's p50 and p99 over the six
+       requests.
+8. (t) The chaos soak of the query server on the card at its smoke size
+   (`serve.chaos.run_chaos(smoke=True)`: 48 mixed queries a pass; the
+   overflow, raise and estimates families, the pressure and memory
+   passes): every answer equal to its fault-free oracle, the blast radius
+   confined; its baseline p50, p99 and throughput.
+Every phase prints its seconds; the card's name and power limit stand in
+the JSON line of every new number.
 
 Prints one JSON line {"kernels": [...]} before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, before printing either,
@@ -313,17 +340,23 @@ def main() -> None:
     from repro_torch.kernels import radix_partition as krp
     from repro_torch.kernels import segsum as kseg
     from repro_torch.core.planner import PrimitiveProfile
+    from repro_torch.analysis import dispatch_audit
+    from repro_torch.data.relgen import JoinWorkload, generate
     from repro_torch.engine import (Catalog, calibrated_profile, detect_budget_bytes, optimize,
                                     run_morsels, scan)
+    from repro_torch.engine import executor as EX
     from repro_torch.engine import physical as PH
-    from repro_torch.obs import metrics
+    from repro_torch.obs import CalibrationStore, Span, backend_fingerprint, metrics, residuals_of
     from repro_torch.resilience import escalation, faults
+    from repro_torch.serve import QueryRequest, QueryServer
+    from repro_torch.serve.chaos import run_chaos
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    log(smi[0] if smi else "nvidia-smi printed nothing")
+    card = smi[0] if smi else "nvidia-smi printed nothing"
+    log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     clock = PhaseClock()
@@ -883,6 +916,7 @@ def main() -> None:
         "plan_run": plan_shape(plan.root),
         "same_choice_at_both_profiles": plan_shape(plan.root) == plan_shape(plan24.root),
         "budget_bytes": detect_budget_bytes(dev)}}))
+    span0 = Span.allocated
     (Ge, gce), q18_info = engine_path("q18_engine", plan)
     q18_equal(Ge, gce, "Q18 engine")
     log(json.dumps({"q18_engine_profile": profile_run(plan.run)}))
@@ -908,7 +942,191 @@ def main() -> None:
     del Gm, Ge, cat
     log(f"(o) Q18 through the engine: the optimizer's plan, checked, forced PHJ-OM and SMJ-OM and "
         f"4 morsels equal the direct operators and numpy per key; no degradation")
+    check(Span.allocated == span0, f"the untraced engine runs allocated "
+          f"{Span.allocated - span0} trace spans")
+    log(json.dumps({"q18_engine_untraced": {"card": card, "warm_s_median_of_3":
+                                            q18_info["warm_s_median_of_3"],
+                                            "spans_allocated": Span.allocated - span0}}))
     clock.done("5o Q18 through the engine")
+
+    # -- 5q. a trace of Q18 ---------------------------------------------------
+    q18_tabs = {"orders": R, "lineitem": S}
+    Gt, gct, tr = plan.run(trace=True, trace_iters=3, trace_warmup=1)
+    q18_equal(Gt, gct, "Q18 traced")
+    Gu, gcu = plan.run()
+    same_rows(by_key(Gt, gct), by_key(Gu, gcu), "Q18 traced against the untraced run")
+    del Gt, Gu
+    log(f"(q) Q18 traced, per node the median of 3 CUDA-event timed runs after 1 warm-up "
+        f"({card}):\n{tr.table()}\n{plan.explain(actuals=tr)}")
+    check(abs(tr.sum_wall_s - tr.e2e_wall_s) <= tr.overhead_bound_s,
+          f"Q18 trace: the spans' sum {tr.sum_wall_s} s is not within its overhead bound "
+          f"{tr.overhead_bound_s} s of the untraced run's {tr.e2e_wall_s} s")
+    store = CalibrationStore()
+    fp = backend_fingerprint(dev)
+    residual_store = store.residual_store(fp)
+    residual_store.update(residuals_of(tr))
+    store.put_residuals(fp, residual_store)
+    store.save()
+    perfetto = os.path.join(calib_dir.name, "Q18.perfetto.json")
+    tr.to_chrome_trace(perfetto)
+    log(json.dumps({"q18_trace": {
+        "card": card, "sum_wall_s": tr.sum_wall_s, "e2e_wall_s": tr.e2e_wall_s,
+        "overhead_bound_s": tr.overhead_bound_s, "sync_floor_s": tr.sync_floor_s,
+        "total_wall_s": tr.total_wall_s, "nodes": [sp.as_dict() for sp in tr.spans()],
+        "escalations": [r.summary() for r in tr.escalations],
+        "residuals": {fp: residual_store.as_dict()}, "calibration_store": store.path,
+        "perfetto": perfetto, "perfetto_events": len(tr.chrome_trace())}}))
+    clock.done("5q trace of Q18")
+
+    # -- 5r. the run auditor and the peak bytes of Q18 ---------------------------
+    def peak_against_allocator(name, plan_, tables):
+        """plan_peak_bytes (each op's workspace included) against the
+        allocator over one run of the plan: max_memory_allocated past what was
+        allocated before it, plus the inputs. That run is audited for its
+        storages alone (no per-op peak resets, so the allocator's peak over
+        it stands)."""
+        inputs = sum(t.nbytes() for t in tables.values())
+        torch.cuda.synchronize()
+        a0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rep_, audit_s = timed(torch, lambda: dispatch_audit.audit(
+            lambda tb: EX.execute(plan_.root, tb), tables, workspace=False))
+        alloc = torch.cuda.max_memory_allocated() - a0 + inputs
+        peak_, peak_s = timed(torch, lambda: EX.plan_peak_bytes(plan_, tables))
+        info = {"card": card, "plan_peak_bytes": peak_, "allocator_peak_bytes": alloc,
+                "relative_difference": (peak_ - alloc) / alloc,
+                "storages_alone_bytes": rep_.peak_live_bytes, "peak_at": rep_.peak_live_at,
+                "input_bytes": inputs, "audited_run_s": audit_s, "plan_peak_bytes_s": peak_s,
+                "budget": rep_.budget.as_dict(), "launches": dict(rep_.launches)}
+        log(json.dumps({name: info}))
+        check(abs(peak_ - alloc) <= 0.05 * alloc, f"{name}: plan_peak_bytes {peak_} is not "
+              f"within 5% of the allocator's {alloc}")
+        return info
+
+    def audit_plan(name, plan_):
+        pa, audit_s = timed(torch, lambda: EX.audit(plan_))
+        for e in pa.entries:
+            log(f"(r) {name} audit {type(e.node).__name__}: priced[{e.contract.describe()}] "
+                f"ran[{e.own_budget.describe() or 'none'}] subtree peak "
+                f"{e.report.peak_live_bytes} B launches {json.dumps(dict(e.report.launches))}")
+        check(not pa.violations, f"{name}: contract violations {pa.violations[:3]}")
+        log(f"(r) {name} explain(verify=True) ({audit_s:.3f} s for the audit):\n"
+            f"{plan_.explain(verify=True)}")
+
+    audit_plan("Q18", plan)
+    q18_peak = peak_against_allocator("q18_peak_bytes", plan, q18_tabs)
+    log(f"(r) Q18's plan ({plan_shape(plan.root)[0]}) peaks at {q18_peak['plan_peak_bytes']} B "
+        f"against the allocator's {q18_peak['allocator_peak_bytes']} B; PHJ-OM -> group-by "
+        f"peaked at 12.38 GB (PR 18)")
+    clock.done("5r audit and peak bytes of Q18")
+
+    # -- 5s. the query server on the card: Q18 ----------------------------------
+    def q18_numpy(Rn_, Sn_):
+        """Per present key of a J2-shaped dataset: rows, int64 sum of s1 and
+        r1 (R's key is unique, so the max of r1 is the key's r1)."""
+        n = Rn_["k"].shape[0]
+        rows = np.bincount(Sn_["k"], minlength=n)
+        sums = np.bincount(Sn_["k"], weights=Sn_["s1"].astype(np.float64), minlength=n)
+        check(sums.max() < 2 ** 53, "s1 sums past float64's exact range")
+        r1_of = np.empty(n, np.int64)
+        r1_of[Rn_["k"]] = Rn_["r1"]
+        keys = np.flatnonzero(rows)
+        return {"k": keys, "r2_count": rows[keys], "s1_sum": sums[keys].astype(np.int64),
+                "r1_max": r1_of[keys]}
+
+    def served_equal(req, ref_, direct, what):
+        """A served Q18 against numpy per key and against the same plan run
+        directly on the request's tables (rows sorted by key)."""
+        check(req.done and not req.error and req.result is not None,
+              f"{what}: {req.error} {req.detail}")
+        G_, c_ = req.result
+        a = by_key(G_, c_)
+        check(int(c_) == ref_["k"].shape[0], f"{what}: {int(c_)} groups")
+        h = table_to_numpy(a)
+        for c in ref_:
+            check(np.array_equal(h[c], ref_[c]), f"{what}: column {c} differs from numpy")
+        same_rows(a, by_key(*direct), f"{what} against the same plan run directly")
+        req.result = None
+
+    served = []
+
+    def request_row(srv, req, what, direct_s=None):
+        row = {"card": card, "request": what, "qid": req.qid, "plan_s": req.plan_wall_s,
+               "queue_s": req.queue_wall_s, "run_s": req.exec_wall_s,
+               "total_s": req.total_wall_s, "path": req.path, "morsels": req.morsels,
+               "ticket_bytes": srv.cache[req.signature].peak_bytes,
+               "admit_tick": req.admit_tick, "ticks_deferred": req.ticks_deferred,
+               "signature": req.signature}
+        if direct_s is not None:
+            row["direct_run_s"] = direct_s
+            row["run_over_direct_s"] = req.exec_wall_s - direct_s
+        served.append(row)
+        log(json.dumps({"served": row}))
+
+    ref1 = {"k": keys_ref, "r2_count": rows_k, "s1_sum": s1_ref[keys_ref],
+            "r1_max": r1_ref[keys_ref]}
+    R2n, S2n = generate(JoinWorkload("J2", 14_000_000, 56_000_000, r_payloads=3, s_payloads=1,
+                                     payload_dtype="int64", seed=1))
+    ref2 = q18_numpy(R2n, S2n)
+    q18b_tabs = {"orders": table_from_numpy(R2n), "lineitem": table_from_numpy(S2n)}
+    del R2n, S2n
+    compiled0 = metrics.counter("qserve.plans_compiled").value
+    hits0 = metrics.counter("qserve.plan_cache_hits").value
+    server = QueryServer(device=dev)
+    ops.reset_launch_counts()
+    q18_reqs = []
+    for qid, tabs in ((0, q18_tabs), (1, q18b_tabs)):
+        req = QueryRequest(qid=qid, plan=q18, tables=tabs)
+        server.submit(req)
+        server.run()
+        q18_reqs.append(req)
+    got = ops.launch_counts()
+    entry = server.cache[q18_reqs[0].signature]
+    check(q18_reqs[0].signature == q18_reqs[1].signature, "the two Q18 datasets have two "
+          "signatures")
+    check(metrics.counter("qserve.plans_compiled").value - compiled0 == 1
+          and metrics.counter("qserve.plan_cache_hits").value - hits0 >= 1,
+          "the second Q18 did not reuse the cached plan")
+    check_plan_launches("served Q18", entry.plan, got)
+    for req, tabs, ref_, what in ((q18_reqs[0], q18_tabs, ref1, "served Q18 (J2)"),
+                                  (q18_reqs[1], q18b_tabs, ref2, "served Q18 (14M x 56M)")):
+        direct, direct_s = timed(torch, lambda t=tabs: entry.plan.run(t))
+        direct, direct_s = timed(torch, lambda t=tabs: entry.plan.run(t))
+        served_equal(req, ref_, direct, what)
+        request_row(server, req, what, direct_s)
+    del direct
+    log(f"(s) served Q18 plan (optimized on the padded tables):\n{entry.plan.explain()}")
+    log(json.dumps({"served_q18_launches": got, "card": card}))
+    ticket = entry.peak_bytes
+
+    # two Q18 in one tick under 1.5x the ticket: one runs, one is deferred
+    srv2 = QueryServer(device=dev, slots_per_tick=2, mem_budget_bytes=int(1.5 * ticket))
+    pair = [QueryRequest(qid=10 + i, plan=q18, tables=q18_tabs) for i in range(2)]
+    for req in pair:
+        srv2.submit(req)
+    srv2.run()
+    check(pair[0].admit_tick == 1 and pair[0].ticks_deferred == 0
+          and pair[1].ticks_deferred >= 1 and pair[1].admit_tick > 1,
+          f"contention: admit ticks {[r.admit_tick for r in pair]}, deferred "
+          f"{[r.ticks_deferred for r in pair]}")
+    check(srv2.budget.peak_reserved <= srv2.budget.total and srv2.budget.reserved == 0,
+          "contention: the reservations overran the budget or leaked")
+    direct = entry.plan.run(q18_tabs)
+    for req in pair:
+        served_equal(req, ref1, direct, f"served Q18, contention qid {req.qid}")
+        request_row(srv2, req, f"Q18 under 1.5x the ticket, qid {req.qid}")
+    del srv2, pair
+
+    # Q18 under 0.6x the ticket: morsels
+    srv3 = QueryServer(device=dev, mem_budget_bytes=int(0.6 * ticket))
+    mreq = QueryRequest(qid=20, plan=q18, tables=q18_tabs)
+    srv3.submit(mreq)
+    srv3.run()
+    check(mreq.morsels >= 2, f"Q18 under 0.6x the ticket ran in {mreq.morsels} morsel(s)")
+    served_equal(mreq, ref1, direct, "served Q18 in morsels")
+    request_row(srv3, mreq, "Q18 under 0.6x the ticket")
+    del srv3, direct, q18b_tabs, q18_reqs
+    clock.done("5s the query server: Q18")
     path_launches = dict(launches, probe_agg=gj_info["launches"]["probe_agg"],
                          segsum_partials=sp_info["launches"]["segsum_partials"],
                          lower_bound=smj_info["launches"]["lower_bound"])
@@ -1324,8 +1542,41 @@ def main() -> None:
     log(f"(p) star query through the engine: top 8 of {int(present_f.sum())} groups equal to "
         f"numpy (int32 sums); warm {s_info['warm_s_median_of_3']:.6f} s (median of 3), "
         f"launches {json.dumps(s_info['launches'])}")
-    del St, Sh, star_cat, fact, dims, p1, sums, present_f
     clock.done("7p star query through the engine")
+
+    # -- 7r, 7s. the star query audited, its peak bytes, and served -------------
+    star_tabs = dict(star_cat.tables)
+    audit_plan("star query", splan)
+    peak_against_allocator("star_peak_bytes", splan, star_tabs)
+    ops.reset_launch_counts()
+    sreq = QueryRequest(qid=2, plan=sq, tables=star_tabs)
+    server.submit(sreq)
+    server.run()
+    got = ops.launch_counts()
+    check(sreq.done and not sreq.error, f"served star query: {sreq.error} {sreq.detail}")
+    sentry = server.cache[sreq.signature]
+    check_plan_launches("served star query", sentry.plan, got)
+    (Dt, dtc), direct_s = timed(torch, lambda: sentry.plan.run(star_tabs))
+    (Dt, dtc), direct_s = timed(torch, lambda: sentry.plan.run(star_tabs))
+    Sv, svc = sreq.result
+    Svh = table_to_numpy(Sv.head(int(svc)))
+    check(int(svc) == 8 and np.array_equal(Svh["p1_0_sum"], top8)
+          and np.array_equal(sums[Svh["fk0"]], Svh["p1_0_sum"]),
+          f"served star query: top 8 sums {Svh['p1_0_sum']} != numpy's {top8}")
+    Dh = table_to_numpy(Dt.head(int(dtc)))
+    check(sorted(zip(*[Svh[c].tolist() for c in sorted(Svh)]))
+          == sorted(zip(*[Dh[c].tolist() for c in sorted(Dh)])),
+          "served star query: rows differ from the same plan run directly")
+    sreq.result = None
+    request_row(server, sreq, "star query", direct_s)
+    log(f"(s) served star plan:\n{sentry.plan.explain()}")
+    log(json.dumps({"served_star_launches": got, "card": card}))
+    totals = [r["total_s"] for r in served]
+    check(len(served) == 6, f"{len(served)} served requests, expected 6")
+    log(json.dumps({"server_latency": {"card": card, "requests": len(totals),
+                                       **metrics.percentiles(totals, (50, 99))}}))
+    del St, Sh, star_cat, fact, dims, p1, sums, present_f, Dt, Sv, server, star_tabs
+    clock.done("7s the query server: star query")
     del os.environ["REPRO_CALIBRATION_PATH"]
     calib_dir.cleanup()
 
@@ -1370,6 +1621,35 @@ def main() -> None:
                                                 "skewed_table": skew_pick}}))
     del skew
     clock.done("7n skewed group-bys")
+
+    # -- 8t. the chaos soak on the card -----------------------------------------
+    chaos_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_")
+    os.environ["REPRO_CALIBRATION_PATH"] = os.path.join(chaos_dir.name, "CALIBRATION.json")
+    ops.reset_launch_counts()
+    try:
+        chaos, chaos_s = timed(torch, lambda: run_chaos(smoke=True, device="cuda"))
+    finally:
+        del os.environ["REPRO_CALIBRATION_PATH"]
+        chaos_dir.cleanup()
+    got = ops.launch_counts()
+    base = chaos["baseline"]
+    log(json.dumps({"chaos": {
+        "card": card, "ok": chaos["ok"], "failures": chaos["failures"][:20], "wall_s": chaos_s,
+        "baseline": {k: base[k] for k in ("queries", "wall_s", "throughput_qps", "p50_s",
+                                          "p95_s", "p99_s", "per_shape_p99_s",
+                                          "plans_compiled", "plan_cache_hits")},
+        "families": {f: {k: v for k, v in r.items() if k != "counters"}
+                     for f, r in chaos["families"].items()},
+        "pressure": {k: v for k, v in chaos["pressure"].items() if k != "counters"},
+        "memory": {k: v for k, v in chaos["memory"].items() if k != "counters"},
+        "launches": got}}))
+    check(chaos["ok"], f"chaos soak: {chaos['failures'][:10]}")
+    check(got["hash_probe"] > 0 and got["block_histograms"] > 0 and got["partition_ranks"] > 0,
+          f"chaos soak: the queries launched no join kernel ({got})")
+    log(f"(t) chaos soak ({base['queries']} queries a pass; families "
+        f"{sorted(chaos['families'])}, pressure, memory): ok; baseline p50 {base['p50_s']:.6f} s, "
+        f"p99 {base['p99_s']:.6f} s, {base['throughput_qps']:.1f} queries/s ({card})")
+    clock.done("8t chaos soak")
 
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

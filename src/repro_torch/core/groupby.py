@@ -166,7 +166,8 @@ def groupby_partition_hash(table: Table, *, key: str = "k", aggs: dict[str, str]
     kp = torch.cat([keys, keys.new_full((n_pad,), KEY_SENTINEL)]).reshape(-1, block)
     ks, order = torch.sort(kp, dim=1, stable=True)
     n_tiles = ks.shape[0]
-    src = (order + torch.arange(n_tiles, device=dev)[:, None] * block).reshape(-1)
+    tile0 = torch.arange(n_tiles, dtype=torch.int32, device=dev)[:, None] * block
+    src = (order + tile0).reshape(-1)
     src = src.clamp(max=n - 1)
     valid = (ks != KEY_SENTINEL).reshape(-1)
     head = valid & torch.cat([torch.ones((n_tiles, 1), dtype=torch.bool, device=dev),
@@ -471,8 +472,8 @@ def groupby_scatter(table: Table, *, key: str = "k", aggs: dict[str, str], num_g
         elif op in ("sum", "mean") and vals.dtype.is_floating_point:
             if run_sums is None:  # one sort by key serves every float sum
                 sg, order = torch.sort(gid, stable=True)
-                run_sums = kops.RunSums(torch.searchsorted(
-                    sg, torch.arange(num_groups + 1, device=dev), out_int32=True))
+                bounds = torch.arange(num_groups + 1, dtype=torch.int32, device=dev)
+                run_sums = kops.RunSums(torch.searchsorted(sg, bounds, out_int32=True))
             acc = run_sums(vals[order])
         elif op in ("sum", "mean"):
             acc = torch.zeros(num_groups + 1, dtype=vals.dtype, device=dev).index_add_(
@@ -483,8 +484,8 @@ def groupby_scatter(table: Table, *, key: str = "k", aggs: dict[str, str], num_g
     names = list(out)
     compacted, n_present = prim.compact(counts > 0, [out[n] for n in names], num_groups)
     out = dict(zip(names, compacted))
-    out[key] = torch.where(torch.arange(num_groups, device=dev) < n_present, out[key],
-                           KEY_SENTINEL)
+    present = torch.arange(num_groups, dtype=torch.int32, device=dev) < n_present
+    out[key] = torch.where(present, out[key], KEY_SENTINEL)
     return Table(out), n_present
 
 

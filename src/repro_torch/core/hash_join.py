@@ -210,7 +210,7 @@ def phj_join(
             vid_s = torch.arange(ks.shape[0], dtype=torch.int32, device=dev)
             (keys_o, vr, vs), count = prim.compact(matched, [ks, vid_r, vid_s], out_size,
                                                    fill=KEY_SENTINEL)
-            valid = torch.arange(out_size, device=dev) < count
+            valid = torch.arange(out_size, dtype=torch.int32, device=dev) < count
         else:
             vs, ranks, valid, total = prim.expand_offsets(counts, out_size)
             vr = probe_kth_match(pos_r, first, vs, ranks)

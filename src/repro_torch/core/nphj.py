@@ -100,7 +100,7 @@ def nphj_join(
     vid_s = torch.arange(S.num_rows, dtype=torch.int32, device=dev)
     (keys_o, vr, vs), count = prim.compact(matched, [S[key], vid_r, vid_s], out_size,
                                            fill=KEY_SENTINEL)
-    valid = torch.arange(out_size, device=dev) < count
+    valid = torch.arange(out_size, dtype=torch.int32, device=dev) < count
     cols = {key: keys_o}
     for n in R.column_names:
         if n != key:

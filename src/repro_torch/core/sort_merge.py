@@ -64,7 +64,7 @@ def _find(kr, ks, mode, out_size, find_impl, phases):
             vid_s = torch.arange(ks.shape[0], dtype=torch.int32, device=dev)
             (keys_o, vr_o, vs_o), count = prim.compact(matched, [ks, vid_r, vid_s], out_size,
                                                        fill=KEY_SENTINEL)
-            valid = torch.arange(out_size, device=dev) < count
+            valid = torch.arange(out_size, dtype=torch.int32, device=dev) < count
         return keys_o, vr_o, vs_o, valid, count
     with phase(phases, "find", dev):
         vid_r, vid_s, valid, total = merge_find_mn(kr, ks, out_size)

@@ -20,7 +20,7 @@ import torch
 from ..kernels.common import KEY_SENTINEL
 
 __all__ = ["KEY_SENTINEL", "Table", "concat_tables", "nonempty", "table_from_dict",
-           "table_from_numpy", "table_to_numpy"]
+           "table_from_numpy", "table_to_numpy", "tensors_of"]
 
 
 @dataclasses.dataclass
@@ -132,3 +132,18 @@ def nonempty(table: Table, key: str) -> Table:
     return Table({n: torch.full((1,), KEY_SENTINEL if n == key else 0, dtype=c.dtype,
                                 device=c.device)
                   for n, c in table.columns.items()})
+
+
+def tensors_of(obj) -> Iterator[torch.Tensor]:
+    """Every tensor in `obj`: a tensor, a Table, or mappings and sequences
+    of them, in order."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+        return
+    if isinstance(obj, Table):
+        obj = obj.columns
+    if isinstance(obj, Mapping):
+        obj = list(obj.values())
+    if isinstance(obj, (list, tuple)):
+        for item in obj:
+            yield from tensors_of(item)

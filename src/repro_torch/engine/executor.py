@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 from typing import Mapping
 
 import torch
@@ -64,12 +65,27 @@ def checked_mode():
         _CHECKED.reset(token)
 
 
+class Materialized:
+    """Pseudo plan node wrapping an already-computed ``(Table, count)``
+    pair. The per-node tracer (obs.trace) substitutes these for a node's
+    children so `execute` runs exactly one operator on its children's
+    results. Untraced execution never constructs one."""
+
+    __slots__ = ("value",)
+
+    def __init__(self, value):
+        self.value = value
+
+    def children(self):
+        return ()
+
+
 def _count_tensor(count, device) -> torch.Tensor:
     return torch.as_tensor(count, dtype=torch.int32, device=device)
 
 
 def _valid_mask(table: Table, count) -> torch.Tensor:
-    return torch.arange(table.num_rows, device=table.device) < count
+    return torch.arange(table.num_rows, dtype=torch.int32, device=table.device) < count
 
 
 def _mask_key(table: Table, count, key: str) -> Table:
@@ -92,6 +108,8 @@ def execute(node: P.PhysNode, tables: Mapping[str, Table], counts=None):
     `counts` (optional ``{table_name: valid_count}``) marks only the first
     rows of a table valid (the morsel driver's chunks); without it, a
     scan's whole table is valid."""
+    if isinstance(node, Materialized):
+        return node.value
     if isinstance(node, P.PScan):
         t = tables[node.table]
         if counts is not None and node.table in counts:
@@ -211,25 +229,116 @@ def _order_by(node: P.POrderByLimit, tables, counts=None):
 
 
 # ---------------------------------------------------------------------------
-# not ported yet
+# contract audit: the run's side of priced-vs-run (DESIGN.md §11)
 # ---------------------------------------------------------------------------
-def audit(plan: "P.PhysicalPlan", tables: Mapping[str, Table] | None = None):
-    """Each node's priced contract against its primitive budget: belongs to
-    the analysis layer, not ported yet."""
-    raise NotImplementedError("executor.audit needs the analysis layer, not ported yet "
-                              "(ROADMAP Queue 1 item 6)")
+@dataclasses.dataclass
+class NodeAudit:
+    """One physical node judged against its priced contract. `own_budget`
+    is the node's incremental primitive budget: its subtree's run minus its
+    children's subtree runs, so a join is never charged for the sort its
+    order-by child pays."""
+    node: P.PhysNode
+    contract: object  # analysis.OperatorContract
+    report: object  # analysis.AuditReport of the node's SUBTREE
+    own_budget: object  # analysis.PrimitiveBudget of the node alone
+    violations: list
+
+
+@dataclasses.dataclass
+class PlanAudit:
+    entries: list  # NodeAudit, preorder from the root
+    root_report: object  # whole-plan AuditReport
+
+    @property
+    def violations(self) -> list:
+        return [v for e in self.entries for v in e.violations]
+
+    def by_node(self) -> dict:
+        return {id(e.node): e for e in self.entries}
+
+    def as_dict(self) -> dict:
+        return {
+            "peak_live_bytes": self.root_report.peak_live_bytes,
+            "budget": self.root_report.budget.as_dict(),
+            "nodes": [{
+                "node": type(e.node).__name__,
+                "contract": e.contract.describe(),
+                "compiled": e.own_budget.as_dict(),
+                "violations": [f"{type(v).__name__}: {v}"
+                               for v in e.violations],
+            } for e in self.entries],
+        }
+
+
+def _scan_names(node: P.PhysNode) -> set:
+    if isinstance(node, P.PScan):
+        return {node.table}
+    names: set = set()
+    for child in node.children():
+        names |= _scan_names(child)
+    return names
+
+
+def audit(plan: "P.PhysicalPlan",
+          tables: Mapping[str, Table] | None = None) -> PlanAudit:
+    """Run every plan subtree once under the auditor
+    (`analysis.dispatch_audit`), attribute each node's incremental
+    primitive budget, and judge it against the node's declared contract
+    (`analysis.contracts.contract_for_node`). A subtree runs on only the
+    tables it scans, so the liveness watermark of a fused group-join
+    reflects *its* inputs — the checkable form of 'the join output never
+    materialized'."""
+    from ..analysis import contracts as C
+    from ..analysis import dispatch_audit as A
+
+    metrics.counter("engine.contract_audits").inc()
+    tables = dict(tables if tables is not None else plan.catalog.tables)
+    reports: dict = {}
+    entries: list[NodeAudit] = []
+
+    def visit(node: P.PhysNode):
+        sub = {n: tables[n] for n in sorted(_scan_names(node))}
+        rep = A.audit(lambda tb: execute(node, tb), sub)
+        reports[id(node)] = rep
+        contract = C.contract_for_node(node)
+        entry = NodeAudit(node=node, contract=contract, report=rep,
+                          own_budget=None, violations=[])
+        entries.append(entry)  # preorder: parent precedes children
+        own = rep.budget
+        for child in node.children():
+            visit(child)
+            own = own - reports[id(child)].budget
+        entry.own_budget = own
+        entry.violations = C.check(contract, rep, own)
+
+    visit(plan.root)
+    return PlanAudit(entries=entries, root_report=reports[id(plan.root)])
 
 
 def plan_peak_bytes(plan: "P.PhysicalPlan", tables: Mapping[str, Table] | None = None,
                     counts=None) -> int:
-    """The plan's peak live bytes: belongs to the analysis layer, not ported
-    yet."""
-    raise NotImplementedError("plan_peak_bytes needs the analysis layer, not ported yet "
-                              "(ROADMAP Queue 1 item 6)")
+    """The plan's peak live bytes (the figure the memory governor admits
+    against): the auditor's watermark over one run of the plan on the
+    tables' device, inputs included — on a card the bytes the run really
+    allocated at its worst, each op's workspace included. With `counts`,
+    the run the serving layer makes (a valid prefix of each table). A run
+    that exhausts the card's memory needs more than the card has: the
+    answer is then the card's total memory plus one byte, which no budget
+    on that card admits whole."""
+    from ..analysis import dispatch_audit as A
+
+    tables = dict(tables if tables is not None else plan.catalog.tables)
+    try:
+        return int(A.audit(lambda tb: execute(plan.root, tb, counts), tables)
+                   .peak_live_bytes)
+    except torch.cuda.OutOfMemoryError:
+        device = next(iter(tables.values())).device
+        return int(torch.cuda.mem_get_info(device)[1]) + 1
 
 
 def run(plan: "P.PhysicalPlan", tables: Mapping[str, Table] | None = None,
-        *, checked: bool = False, trace: bool = False, counts=None):
+        *, checked: bool = False, trace: bool = False, trace_iters: int = 1,
+        trace_warmup: int = 1, counts=None):
     """Execute a PhysicalPlan. `tables` defaults to the catalog's; pass new
     same-shape tables to reuse one plan across datasets. Returns (Table,
     valid_count), the count a 0-d int32 tensor.
@@ -237,9 +346,13 @@ def run(plan: "P.PhysicalPlan", tables: Mapping[str, Table] | None = None,
     `checked=True` runs the capacity-sensitive nodes through their
     resilience ladders, which record EscalationReports (the JAX package's
     `run(jit=False)`). `counts` ({table_name: valid_count}) marks only the
-    first rows of those tables valid. `trace=True` belongs to the trace
-    layer, not ported yet (ROADMAP Queue 1 item 5), and raises
-    NotImplementedError.
+    first rows of those tables valid.
+
+    With ``trace=True`` the plan runs node by node under the span tracer
+    (obs.trace) and returns ``(table, count, QueryTrace)`` — per-node
+    device-synced wall times, rows/bytes, and predicted-vs-measured
+    residuals. Tracing is strictly opt-in: the untraced path below never
+    calls the tracer and allocates no `Span`.
 
     Graceful degradation (DESIGN.md §13): if the plan raises — an
     `EscalationExhausted` ladder, a fault-injected `raise:executor.run` —
@@ -248,8 +361,13 @@ def run(plan: "P.PhysicalPlan", tables: Mapping[str, Table] | None = None,
     kernel failures (`_NON_DEGRADABLE`) and failures of an
     already-degraded plan re-raise untouched."""
     if trace:
-        raise NotImplementedError("run(trace=True) needs the trace layer, not ported yet "
-                                  "(ROADMAP Queue 1 item 5)")
+        if counts is not None or checked:
+            raise ValueError("trace=True does not support counts= or checked= (the "
+                             "span tracer materializes per-node inputs and makes its "
+                             "own checked pass)")
+        from ..obs.trace import trace_execute
+
+        return trace_execute(plan, tables, iters=trace_iters, warmup=trace_warmup)
     tables = dict(tables if tables is not None else plan.catalog.tables)
 
     def attempt(p: "P.PhysicalPlan"):

@@ -307,56 +307,96 @@ class PhysicalPlan:
                 actuals=None) -> str:
         """Render the plan tree: per node its choice, estimated rows,
         capacity and predicted cost, and per join the paper's §4.4 memory
-        ledger (core.memmodel) of both patterns.
+        ledger (core.memmodel) of both patterns. With `verify=True`, run
+        every subtree under the auditor (executor.audit), print each node's
+        priced contract next to its primitive budget (DESIGN.md §11), and
+        raise the first `analysis.ContractViolation` if any budget diverges
+        from what the cost model priced — the rendered plan rides along in
+        the exception message.
 
-        `verify=True` (each node's priced contract against its primitive
-        budget) belongs to the analysis layer, and `actuals=` (measured
-        times per node) to the trace layer; neither is ported yet
-        (ROADMAP Queue 1 items 6 and 5), so both raise
-        NotImplementedError."""
-        if verify:
-            raise NotImplementedError(
-                "explain(verify=True) needs the analysis layer, not ported yet "
-                "(ROADMAP Queue 1 item 6)")
-        if actuals is not None:
-            raise NotImplementedError(
-                "explain(actuals=...) needs the trace layer, not ported yet "
-                "(ROADMAP Queue 1 item 5)")
+        With `actuals=` (an `obs.trace.QueryTrace` from running THIS plan
+        traced), annotate every plan line with the node's predicted vs
+        measured time and the measured/modeled residual, flagging >2x
+        divergences — the measured side of priced-vs-run (§12)."""
         lines = [f"physical plan  predicted_total={self.total_cost*1e6:.0f}us"]
         if self.degraded:
             lines.append(f"  {self.degraded}")
+        plan_audit = None
+        if verify:
+            from . import executor
 
-        def walk(node, prefix, is_last, label=""):
+            plan_audit = executor.audit(self, tables)
+        by_node = plan_audit.by_node() if plan_audit else {}
+        spans = actuals.by_path() if actuals is not None else {}
+
+        def walk(node, prefix, is_last, label="", path=()):
             branch = "└─ " if is_last else "├─ "
             lab = f"{label}: " if label else ""
             lines.append(prefix + branch + lab + node.describe())
             ext = "   " if is_last else "│  "
+            entry = by_node.get(id(node))
+            if entry is not None:
+                compiled = entry.own_budget.describe() or "none"
+                status = "DIVERGED" if entry.violations else "ok"
+                lines.append(
+                    f"{prefix}{ext}     priced[{entry.contract.describe()}] "
+                    f"compiled[{compiled}] "
+                    f"peak-live={entry.report.peak_live_bytes/1024:.0f}KiB "
+                    f"{status}")
             if isinstance(node, PJoin):
                 n = max(node.build.capacity, node.probe.capacity)
                 model = {p: memmodel.peak_memory_bytes(p, n, 4)
                          for p in ("gftr", "gfur")}
-                lines.append(f"{prefix}{ext}     mem: model["
-                             f"gftr={model['gftr']/1024:.0f}KiB "
-                             f"gfur={model['gfur']/1024:.0f}KiB] "
-                             f"pattern={node.pattern}")
+                mem = (f"{prefix}{ext}     mem: model["
+                       f"gftr={model['gftr']/1024:.0f}KiB "
+                       f"gfur={model['gfur']/1024:.0f}KiB] "
+                       f"pattern={node.pattern}")
+                if entry is not None:
+                    mem += f" audited-peak={entry.report.peak_live_bytes/1024:.0f}KiB"
+                lines.append(mem)
+            span = spans.get(path)
+            if span is not None:
+                if span.residual is not None:
+                    res = f"residual[{span.residual:.2f}x]"
+                    if span.residual >= 2.0 or span.residual <= 0.5:
+                        res += " ** >2x DIVERGENCE **"
+                else:
+                    res = "residual[-]"
+                lines.append(
+                    f"{prefix}{ext}     predicted[{span.predicted_s*1e6:.0f}us] "
+                    f"measured[{span.wall_s*1e6:.0f}us] {res}")
             kids = node.children()
             labels = (
                 ("build", "probe") if isinstance(node, (PJoin, PGroupJoin))
                 else ("",) * len(kids)
             )
             for i, (k, klab) in enumerate(zip(kids, labels)):
-                walk(k, prefix + ext, i == len(kids) - 1, klab)
+                walk(k, prefix + ext, i == len(kids) - 1, klab, path + (i,))
 
         walk(self.root, "", True)
-        return "\n".join(lines)
+        # escalation footer: ladder reports recorded while `actuals` ran
+        # (trace_execute windows the resilience report ring), so a plan
+        # whose checked drivers escalated shows the attempt path next to
+        # the measured times they cost
+        for rep in getattr(actuals, "escalations", ()) or ():
+            lines.append(f"  escalation: {rep.summary()}")
+        rendered = "\n".join(lines)
+        if plan_audit is not None and plan_audit.violations:
+            first = plan_audit.violations[0]
+            raise type(first)(f"{first}\n{rendered}")
+        return rendered
 
     def run(self, tables: Mapping | None = None, *, checked: bool = False,
-            trace: bool = False, counts=None):
+            trace: bool = False, trace_iters: int = 1, trace_warmup: int = 1,
+            counts=None):
         """Execute over `tables` (default: the catalog's). Returns
-        (Table, valid_count); see executor.run."""
+        (Table, valid_count) — or (Table, valid_count, QueryTrace) with
+        ``trace=True`` (per-node spans, see obs.trace); see executor.run."""
         from . import executor
 
-        return executor.run(self, tables, checked=checked, trace=trace, counts=counts)
+        return executor.run(self, tables, checked=checked, trace=trace,
+                            trace_iters=trace_iters, trace_warmup=trace_warmup,
+                            counts=counts)
 
 
 # ---------------------------------------------------------------------------

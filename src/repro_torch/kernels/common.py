@@ -9,8 +9,12 @@ Conventions:
     fallback from a failing kernel to the plain arm.
   * Every kernel wrapper adds one to its entry in `LAUNCHES` where it
     launches its kernel, and nowhere else (`ops.launch_counts`).
+  * Every dispatch site of `ops` marks its call, kernel or plain version,
+    with `kernel_call`, for the run auditor (`analysis.dispatch_audit`).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -29,6 +33,27 @@ SMEM_PER_BLOCK = 232_448
 KERNELS = ("block_histograms", "partition_ranks", "hash_probe", "clustered_gather",
            "probe_agg", "segsum_partials", "lower_bound", "histogram")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+# Auditors watching kernel calls (`analysis.dispatch_audit`); empty unless a
+# run is audited.
+KERNEL_CALL_OBSERVERS: list = []
+
+
+@contextlib.contextmanager
+def kernel_call(name: str):
+    """Marks one call of a kernel (on a CUDA tensor) or of its plain version
+    (on a CPU tensor): an active auditor counts one kernel call and none of
+    the ops inside, so a plan's budget is the same on every device."""
+    if not KERNEL_CALL_OBSERVERS:
+        yield
+        return
+    for ob in KERNEL_CALL_OBSERVERS:
+        ob.kernel_enter(name)
+    try:
+        yield
+    finally:
+        for ob in KERNEL_CALL_OBSERVERS:
+            ob.kernel_exit(name)
 
 
 def ceil_div(a: int, b: int) -> int:

@@ -24,7 +24,7 @@ from . import merge_join as _merge_join
 from . import ref
 from . import segsum as _segsum
 from ._build import KernelError
-from .common import KERNELS, KEY_SENTINEL, LAUNCHES, ceil_div, resolve_impl
+from .common import KERNELS, KEY_SENTINEL, LAUNCHES, ceil_div, kernel_call, resolve_impl
 from .hash_probe import hash_probe as _hash_probe_kernel
 from .hash_probe import layout_probe_blocks
 from .hash_probe import probe_agg as _probe_agg_kernel
@@ -77,10 +77,11 @@ def histogram(digits: torch.Tensor, num_bins: int, impl: str | None = None) -> t
     """(num_bins,) int32 counts of int32 digits; digits < 0 or >= num_bins
     count nowhere. impl='cuda': the histogram kernel; 'torch': its plain
     version (a bincount)."""
-    if resolve_impl(impl, digits) == "cuda":
-        with _kernel_arm("histogram"):
-            return _histogram.histogram(digits, num_bins)
-    return ref.histogram(digits, num_bins)
+    with kernel_call("histogram"):
+        if resolve_impl(impl, digits) == "cuda":
+            with _kernel_arm("histogram"):
+                return _histogram.histogram(digits, num_bins)
+        return ref.histogram(digits, num_bins)
 
 
 # ---------------------------------------------------------------------------
@@ -96,10 +97,11 @@ def partition_plan(digits: torch.Tensor, num_partitions: int, *, carry=(),
     impl='torch': one stable sort of the digits. Both arms return the same
     tensors: the stable partition permutation is unique."""
     impl = resolve_impl(impl, digits)
-    if impl == "cuda":
-        with _kernel_arm("partition_plan"):
-            return _partition_plan_radix(digits, num_partitions, carry=carry)
-    return _partition_plan_torch(digits, num_partitions, carry)
+    with kernel_call("partition_plan"):
+        if impl == "cuda":
+            with _kernel_arm("partition_plan"):
+                return _partition_plan_radix(digits, num_partitions, carry=carry)
+        return _partition_plan_torch(digits, num_partitions, carry)
 
 
 def _partition_plan_torch(digits, num_partitions, carry):
@@ -137,10 +139,11 @@ def merge_lower_bound(build_sorted: torch.Tensor, probe_sorted: torch.Tensor,
     """Lower bound of each sorted probe key in the sorted build keys, int32
     in [0, n_build]. impl='cuda': the lower_bound kernel, right for any span
     (no span check, no fallback); 'torch': its plain version (searchsorted)."""
-    if resolve_impl(impl, probe_sorted, build_sorted) == "cuda":
-        with _kernel_arm("lower_bound"):
-            return _merge_join.lower_bound(build_sorted, probe_sorted)
-    return ref.lower_bound(build_sorted, probe_sorted)
+    with kernel_call("lower_bound"):
+        if resolve_impl(impl, probe_sorted, build_sorted) == "cuda":
+            with _kernel_arm("lower_bound"):
+                return _merge_join.lower_bound(build_sorted, probe_sorted)
+        return ref.lower_bound(build_sorted, probe_sorted)
 
 
 # ---------------------------------------------------------------------------
@@ -159,10 +162,11 @@ def hash_probe(build_keys_part: torch.Tensor, off_r: torch.Tensor, sz_r: torch.T
     directly; 'torch': its plain version (`ref.hash_probe`)."""
     impl = resolve_impl(impl, probe_keys_part)
     args = (build_keys_part, off_r, sz_r, probe_keys_part, probe_off, probe_sz, build_block)
-    if impl == "torch":
-        return ref.hash_probe(*args)
-    with _kernel_arm("hash_probe"):
-        return _hash_probe_kernel(*(a.contiguous() for a in args[:-1]), build_block)
+    with kernel_call("hash_probe"):
+        if impl == "torch":
+            return ref.hash_probe(*args)
+        with _kernel_arm("hash_probe"):
+            return _hash_probe_kernel(*(a.contiguous() for a in args[:-1]), build_block)
 
 
 # ---------------------------------------------------------------------------
@@ -172,10 +176,11 @@ def clustered_gather(src: torch.Tensor, idx: torch.Tensor, impl: str | None = No
     """GATHER: out[i] = src[clip(idx[i])] where idx[i] >= 0, else 0. The
     kernel is right for any index, so no span check picks the arm."""
     impl = resolve_impl(impl, src, idx)
-    if impl == "torch":
-        return ref.clustered_gather(src, idx)
-    with _kernel_arm("clustered_gather"):
-        return _gather.clustered_gather(src.contiguous(), idx.to(torch.int32).contiguous())
+    with kernel_call("clustered_gather"):
+        if impl == "torch":
+            return ref.clustered_gather(src, idx)
+        with _kernel_arm("clustered_gather"):
+            return _gather.clustered_gather(src.contiguous(), idx.to(torch.int32).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +204,7 @@ def sorted_runs(sk: torch.Tensor, num_groups: int):
 def run_keys(sk: torch.Tensor, starts: torch.Tensor, n_found: torch.Tensor) -> torch.Tensor:
     """The key of each run of `sorted_runs`, KEY_SENTINEL past the last."""
     g = starts.shape[0] - 1
-    present = torch.arange(g, device=sk.device) < n_found
+    present = torch.arange(g, dtype=torch.int32, device=sk.device) < n_found
     return torch.where(present, sk[starts[:-1].clamp(max=sk.shape[0] - 1)], KEY_SENTINEL)
 
 
@@ -234,7 +239,7 @@ class RunSums:
             rel = starts - lo
             pos = torch.arange(hi - lo, dtype=torch.int32, device=starts.device)
             # each row's run is the number of runs that end at or before it
-            run_start = rel[torch.searchsorted(rel[1:], pos, right=True)]
+            run_start = rel[torch.searchsorted(rel[1:], pos, right=True, out_int32=True)]
             self._geometry = (lo, hi, longest, pos, run_start, lengths > 0,
                               (rel[1:] - 1).clamp(min=0))
         return self._geometry
@@ -316,9 +321,10 @@ def groupjoin_probe_agg(bkeys: torch.Tensor, bvals: torch.Tensor | None,
         pvb = torch.where(pad[:, None, :], pv_part.to(torch.float32)[:, safe].permute(1, 0, 2),
                           0.0).contiguous()
         del safe
-        pkeys, psums, pcounts = _probe_agg_kernel(bkeys.contiguous(),
-                                                  bvals.to(torch.float32).contiguous(), pk, gkb,
-                                                  pvb, part, col_sides)
+        with kernel_call("probe_agg"):
+            pkeys, psums, pcounts = _probe_agg_kernel(bkeys.contiguous(),
+                                                      bvals.to(torch.float32).contiguous(), pk,
+                                                      gkb, pvb, part, col_sides)
         del pk, part, src_idx, gkb, pvb
         return _combine_group_partials(pkeys.reshape(-1),
                                        [psums[:, c].reshape(-1) for c in range(len(col_sides))],
@@ -338,7 +344,7 @@ def groupby_sorted_sum(sorted_keys: torch.Tensor, values: torch.Tensor, num_grou
     The reference re-sorts its partials (slot layout, sentinel slots among
     them), so it also sums unsorted rows by key; here unsorted keys raise
     ValueError (`segsum_partials`), a KernelError on the card."""
-    with _kernel_arm("segsum_partials", sorted_keys.is_cuda):
+    with _kernel_arm("segsum_partials", sorted_keys.is_cuda), kernel_call("segsum_partials"):
         pk, ps, _ = _segsum.segsum_partials(sorted_keys.contiguous(),
                                             values.to(torch.float32).contiguous())
     if pk.shape[0] == 0:

@@ -2,10 +2,10 @@
 copy of the JAX package's `obs.residuals` (DESIGN.md §12).
 
 A *residual* is the ratio measured/modeled for one plan node — 1.0 means
-the cost model priced the operator exactly. A trace of a run supplies
-them (the trace layer is still to port: `residuals_of` comes with it);
-`ResidualStore` keeps a per-(operator, strategy) EWMA so repeated runs
-sharpen the picture instead of the last run overwriting it; `regret_check` replays a cost
+the cost model priced the operator exactly. `residuals_of` extracts
+them from a `QueryTrace` (obs.trace); `ResidualStore` keeps a
+per-(operator, strategy) EWMA so repeated runs sharpen the picture instead
+of the last run overwriting it; `regret_check` replays a cost
 comparison with each candidate's predicted time multiplied by its stored
 residual and reports when the model's winner *loses* the corrected
 comparison by more than `REGRET_FACTOR` — the flag the optimizer attaches
@@ -43,6 +43,14 @@ class NodeResidual:
         return {"op": self.op, "strategy": self.strategy,
                 "predicted_s": self.predicted_s,
                 "measured_s": self.measured_s, "ratio": self.ratio}
+
+
+def residuals_of(trace) -> list:
+    """NodeResiduals for every span the cost model actually priced
+    (scan/project carry zero predicted cost — no ratio to learn from)."""
+    return [NodeResidual(op=s.op, strategy=s.strategy,
+                         predicted_s=s.predicted_s, measured_s=s.wall_s)
+            for s in trace.spans() if s.predicted_s > 0.0]
 
 
 class ResidualStore:

@@ -1127,3 +1127,118 @@ def test_engine_two_joins_and_group_by_on_card(dev, checked):
     assert got["probe_agg"] == 0
     assert got["clustered_gather"] >= sum(n.pattern == "gftr" for n in joins)
     assert got["lower_bound"] == got["segsum_partials"] == got["histogram"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the trace layer, the run auditor and the query server on the card
+# ---------------------------------------------------------------------------
+def test_span_time_against_a_synchronized_wall(dev):
+    """A span's CUDA-event time of a known kernel (the radix partition plan
+    of 16M digits: histogram and rank passes) against the host wall of the
+    same calls ended by a synchronize: the event time is the device's, so
+    it cannot exceed the wall, and on a call this long the two agree to a
+    few launch gaps."""
+    import time
+
+    from repro_torch.obs import timed_call
+
+    rng = np.random.default_rng(0)
+    d = _on(dev, rng.integers(0, 4097, 1 << 24).astype(np.int32))
+
+    def plan(digits):
+        return ops.partition_plan(digits, 4097)
+
+    (_, _, off, sz), ev = timed_call(plan, d, iters=5, warmup=2)
+    assert off.device.type == "cuda" and int(sz.sum()) == d.shape[0]
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        plan(d)
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+    wall = sorted(walls)[2]
+    assert 0 < ev <= wall * 1.05
+    assert ev >= 0.5 * wall, (ev, wall)
+
+
+def _server_tables(dev, seed=0, n_r=40_000, n_s=160_000):
+    R, S = relgen.generate(relgen.JoinWorkload("t", n_r, n_s, 2, 1, seed=seed))
+    return ({"R": T.table_from_numpy(R, dev), "S": T.table_from_numpy(S, dev)},
+            {"R": T.table_from_numpy(R, "cpu"), "S": T.table_from_numpy(S, "cpu")})
+
+
+def test_plan_peak_bytes_against_the_allocator(dev):
+    """plan_peak_bytes of a join + group-by on the card against
+    max_memory_allocated over the same run (reset before it): the storages
+    alone from one run, with each op's workspace from another; within 5%."""
+    from repro_torch.analysis import dispatch_audit as A
+    from repro_torch.engine import Catalog, executor, optimize, scan
+
+    tabs, _ = _server_tables(dev)
+    plan = optimize(scan("S").join(scan("R"), key="k").group_by("k", s1="sum", r1="max"),
+                    Catalog(tabs), measure_profile=False)
+    plan.run()
+    inputs = sum(t.nbytes() for t in tabs.values())
+    torch.cuda.synchronize(dev)
+    a0 = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    storages = A.audit(lambda tb: executor.execute(plan.root, tb), tabs,
+                       workspace=False).peak_live_bytes
+    torch.cuda.synchronize(dev)
+    allocator = torch.cuda.max_memory_allocated(dev) - a0 + inputs
+    peak = executor.plan_peak_bytes(plan)
+    assert storages <= peak
+    assert abs(peak - allocator) <= 0.05 * allocator, (peak, allocator, storages)
+
+
+def test_audit_budget_on_the_card_equals_the_cpu(dev):
+    """The kernel-call marks make a plan's budget the same on every device;
+    on the card every mark launched its kernels."""
+    from repro_torch.engine import Catalog, executor, optimize, scan
+    from repro_torch.core.planner import PrimitiveProfile
+
+    on_card, on_cpu = _server_tables(dev)
+    q = scan("S").join(scan("R"), key="k").group_by("k", s1="sum")
+    prof = PrimitiveProfile()
+    card = executor.audit(optimize(q, Catalog(on_card), profile=prof))
+    cpu = executor.audit(optimize(q, Catalog(on_cpu), profile=prof))
+    assert card.root_report.budget == cpu.root_report.budget
+    assert not card.violations and not cpu.violations
+    launches = dict(card.root_report.launches)
+    assert launches and not cpu.root_report.launches
+    assert sum(launches.values()) >= card.root_report.budget.kernel_calls
+
+
+def test_server_tick_on_card_equals_cpu(dev):
+    """One server tick with three requests on the card gives the rows the
+    same tick gives on the CPU."""
+    from repro_torch.engine import scan
+    from repro_torch.serve import QueryRequest, QueryServer
+    from repro_torch.serve.chaos import canon
+
+    plan = scan("S").join(scan("R"), key="k").group_by("k", s1="sum", r1="max")
+    out = {}
+    for where in ("cuda", "cpu"):
+        server = QueryServer(device=where)
+        reqs = []
+        for i in range(3):
+            card, host = _server_tables(dev, seed=i, n_r=30_000 + 1000 * i)
+            reqs.append(QueryRequest(qid=i, plan=plan, tables=card if where == "cuda" else host))
+        for r in reqs:
+            server.submit(r)
+        server.step()
+        assert all(r.done and not r.error and r.path == "fast" for r in reqs)
+        assert len({r.signature for r in reqs}) == 1 and server.tick == 1
+        out[where] = [canon(*r.result) for r in reqs]
+    assert out["cuda"] == out["cpu"]
+
+
+def test_chaos_soak_on_card(dev):
+    from repro_torch.serve.chaos import run_chaos
+
+    rep = run_chaos(queries_per_family=8, families=("estimates",), device="cuda")
+    assert rep["ok"], rep["failures"]
+    assert rep["config"]["device"] == "cuda"
+    assert rep["families"]["estimates"]["counters"]["qserve.saturations"] > 0
+    assert rep["memory"]["big_morsels"] and min(rep["memory"]["big_morsels"]) >= 2

@@ -46,7 +46,6 @@ from repro.resilience import escalation as jesc  # noqa: E402
 from repro.resilience import faults as jfaults  # noqa: E402
 from repro_torch.core.planner import PrimitiveProfile  # noqa: E402
 from repro_torch.data import relgen as trel  # noqa: E402
-from repro_torch.engine import executor as tex  # noqa: E402
 from repro_torch.engine import membudget as tmb  # noqa: E402
 from repro_torch.engine import physical as TP  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -405,15 +404,6 @@ def test_run_accepts_same_shape_tables_and_counts():
     t2 = {"R": T.table_from_numpy(R2, device="cpu"), "S": T.table_from_numpy(S2, device="cpu")}
     assert int(tplan.run(t2)[1]) == 4000
     assert int(tplan.run(t2, counts={"S": 1000})[1]) == 1000
-
-
-def test_unported_layers_raise():
-    _, tplan = plans("single_join_mr1")
-    for call in (lambda: tplan.explain(verify=True), lambda: tplan.explain(actuals=object()),
-                 lambda: tplan.run(trace=True), lambda: tex.audit(tplan),
-                 lambda: TE.plan_peak_bytes(tplan)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-            call()
 
 
 @pytest.mark.parametrize("kind", ["tensor", "numpy", "mixed"])

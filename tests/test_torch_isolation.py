@@ -42,7 +42,11 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "import repro_torch.engine, repro_torch.engine.logical, repro_torch.engine.stats\n"
             "import repro_torch.engine.physical, repro_torch.engine.executor\n"
             "import repro_torch.engine.membudget, repro_torch.obs.calibration\n"
-            "import repro_torch.obs.residuals\n"
+            "import repro_torch.obs.residuals, repro_torch.obs.trace, repro_torch.obs.__main__\n"
+            "import repro_torch.analysis, repro_torch.analysis.dispatch_audit\n"
+            "import repro_torch.analysis.contracts, repro_torch.analysis.__main__\n"
+            "import repro_torch.serve, repro_torch.serve.query, repro_torch.serve.chaos\n"
+            "import repro_torch.serve.__main__, repro_torch.resilience.__main__\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
