@@ -126,6 +126,23 @@
    overflow, raise and estimates families, the pressure and memory
    passes): every answer equal to its fault-free oracle, the blast radius
    confined; its baseline p50, p99 and throughput.
+9. (u) The LM decode server: qwen2-moe-a2.7b at its published widths and
+   depth (24 layers, 14,315,587,584 parameters) in bf16, drawn on the card
+   from `torch.Generator("cuda").manual_seed(0)`; `ServeEngine(max_batch=8,
+   max_len=128)` over 16 requests (prompts of 2 to 8 tokens from numpy seed
+   0, 16 new tokens each), with the launch counters set to 0 just before
+   and read just after: exactly 24 `block_histograms` and 24
+   `partition_ranks` launches per decode step (the MoE routing plan of each
+   layer), no request error, no `resilience.serve_*` counter moved; ticks,
+   the step's median and p90 ms, generated tokens/s, peak memory. The same
+   requests with the partition plan on its torch arm: token streams, every
+   step's logits and layer 0's first dispatch plan equal bit for bit. One
+   decode step profiled, and one layer's expert FFN timed alone; the two
+   routing kernels' rows at the decode shape (32 digits, 60 bins); the
+   model cut to 1 layer in float32 (TF32 off) on the card against the CPU
+   (logits within 1e-3 of their largest magnitude, expert choices equal
+   where the 4th and 5th router probabilities differ by more than 1e-5);
+   `repro_torch.launch.serve.main(["--arch", "olmo-1b", "--full"])`.
 Every phase prints its seconds; the card's name and power limit stand in
 the JSON line of every new number.
 
@@ -194,6 +211,22 @@ F32_ULP = 2.0 ** -24
 # order in float32: equal unless a compiler reorders an add; allowed one
 # ulp of the sum
 KERNEL_SUM_RTOL = 2.0 ** -23
+# the LM decode server's cell: qwen2-moe-a2.7b at its published widths and
+# depth in bf16, 16 requests over 8 slots (prompts of 2 to 8 tokens from
+# numpy seed 0, 16 new tokens each), a 128-token cache
+LM_ARCH = "qwen2-moe-a2.7b"
+LM_PARAMS = 14_315_587_584
+LM_REQUESTS, LM_MAX_TOKENS, LM_BATCH, LM_MAX_LEN = 16, 16, 8, 128
+# the card against the CPU at full width cut to 1 layer, float32, TF32 off:
+# logits within 1e-3 of their largest magnitude; expert choices equal where
+# the 4th and 5th router probabilities differ by more than 1e-5
+LM_CPU_LOGIT_RTOL, LM_CPU_ROUTE_GAP = 1e-3, 1e-5
+# kernel-name substrings of the decode step's device time, by group
+LM_KERNEL_GROUPS = {"matmuls": ("gemm", "cutlass", "xmma", "sm90_", "nvjet", "cublas"),
+                    "routing kernels": ("block_histograms", "partition_ranks"),
+                    "softmax": ("softmax",),
+                    "gathers, scatters and copies": ("index", "gather", "scatter", "copy",
+                                                     "cat", "Memcpy", "Memset")}
 KERNEL_SOURCES = {
     "block_histograms": ("src/repro_torch/csrc/block_histograms.cu",
                          "src/repro/kernels/radix_partition.py:49"),
@@ -310,6 +343,244 @@ def per_key(keys: np.ndarray, n_keys: int, sum_col: np.ndarray, max_col: np.ndar
     return rows, sums, maxs
 
 
+def lm_phase(torch, card, record, record_hist, profile_run, results) -> None:
+    """(u) The LM decode server: qwen2-moe-a2.7b at full width and depth in
+    bf16 through `ServeEngine`, its MoE routing on the radix-partition
+    kernels; the same requests on the partition plan's torch arm, bit for
+    bit; one profiled decode step; the routing kernels' rows at the decode
+    shape (appended to `results`); the card against the CPU at 1 layer; the
+    serve launcher at full size."""
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import primitives as prim
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import radix_partition as krp
+    from repro_torch.launch import serve as lm_launch
+    from repro_torch.models import model as LM
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.params import leaves, map_leaves
+    from repro_torch.obs import metrics
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    live_before = torch.cuda.memory_allocated()
+    log(f"before the LM phase: {live_before} bytes still allocated")
+    lm_cfg = get_config(LM_ARCH)
+    check(LM.num_params(lm_cfg) == LM_PARAMS,
+          f"{LM_ARCH}: {LM.num_params(lm_cfg)} parameters, expected {LM_PARAMS}")
+    lm_params, init_s = timed(torch, lambda: LM.init_params(
+        lm_cfg, torch.Generator("cuda").manual_seed(0), torch.bfloat16, "cuda"))
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves(lm_params, torch.is_tensor))
+    log(json.dumps({"lm_model": {"arch": LM_ARCH, "layers": lm_cfg.num_layers,
+                                 "params": LM.num_params(lm_cfg), "param_bytes": param_bytes,
+                                 "dtype": "bfloat16", "init_s": init_s, "card": card}}))
+    lm_rng = np.random.default_rng(0)
+    lm_prompts = [lm_rng.integers(3, lm_cfg.vocab_size, size=lm_rng.integers(2, 9)).tolist()
+                  for _ in range(LM_REQUESTS)]
+    serve_counters = ("resilience.serve_shed", "resilience.serve_retries",
+                      "resilience.serve_evictions", "resilience.serve_deadline_evictions")
+    routing = ("block_histograms", "partition_ranks")
+
+    def lm_serve():
+        """The 16 requests through a fresh engine; per step: host ms after a
+        synchronize, its logits and its launches; the first dispatch plan
+        (layer 0, step 1) and its digits."""
+        eng = ServeEngine(lm_cfg, lm_params, max_batch=LM_BATCH, max_len=LM_MAX_LEN,
+                          dtype=torch.bfloat16)
+        steps, plans = [], []
+        real_step, real_plan = eng._step, MOE._plan_sort
+
+        def step_fn(p, c, tok, pos):
+            torch.cuda.synchronize()
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            lg, cache = real_step(p, c, tok, pos)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = ops.launch_counts()
+            steps.append({"ms": ms, "logits": lg,
+                          "launches": {k: after[k] - before[k] for k in after}})
+            return lg, cache
+
+        def plan_fn(expert_idx, E, C):
+            out = real_plan(expert_idx, E, C)
+            if not plans:
+                plans.append((expert_idx.reshape(-1).clone(), E, C, out))
+            return out
+
+        eng._step = step_fn
+        MOE._plan_sort = plan_fn
+        reqs = [Request(rid=i, prompt=list(pr), max_tokens=LM_MAX_TOKENS)
+                for i, pr in enumerate(lm_prompts)]
+        before = {k: metrics.counter(k).value for k in serve_counters}
+        try:
+            for r in reqs:
+                eng.submit(r)
+            ticks, wall = timed(torch, eng.run)
+        finally:
+            MOE._plan_sort = real_plan
+        moved = {k: metrics.counter(k).value - v for k, v in before.items()}
+        check(all(r.done and not r.error for r in reqs),
+              f"LM server: request errors {[(r.rid, r.error) for r in reqs if r.error]}")
+        check(not any(moved.values()), f"LM server: resilience counters moved {moved}")
+        return eng, reqs, ticks, wall, steps, plans[0]
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    eng, reqs, ticks, wall, steps, plan_k = lm_serve()
+    lm_launches = ops.launch_counts()
+    lm_peak = torch.cuda.max_memory_allocated()
+    for i, st in enumerate(steps):
+        want = {k: (lm_cfg.num_layers if k in routing else 0) for k in st["launches"]}
+        check(st["launches"] == want, f"LM decode step {i}: launches {st['launches']}, "
+              f"expected {lm_cfg.num_layers} of each routing kernel and nothing else")
+    check(lm_launches == {k: (len(steps) * lm_cfg.num_layers if k in routing else 0)
+                          for k in lm_launches},
+          f"LM server: launches {lm_launches} over {len(steps)} steps")
+    steady = [st["ms"] for st in steps[2:]]
+    generated = sum(len(r.out) for r in reqs)
+    lm_info = {"card": card, "requests": LM_REQUESTS, "max_batch": LM_BATCH,
+               "max_len": LM_MAX_LEN, "ticks": ticks, "decode_steps": len(steps),
+               "first_step_ms": steps[0]["ms"],
+               "step_ms_median": float(np.median(steady)),
+               "step_ms_p90": float(np.percentile(steady, 90)), "steady_steps": len(steady),
+               "generated_tokens": generated, "serve_wall_s": wall,
+               "generated_tokens_per_s": generated / wall,
+               "slot_tokens_per_s_at_median": LM_BATCH * 1e3 / float(np.median(steady)),
+               "peak_device_bytes": lm_peak,
+               "peak_above_phase_start_bytes": lm_peak - live_before, "launches": lm_launches,
+               "launches_per_decode_step": {k: lm_cfg.num_layers for k in routing}}
+    log(json.dumps({"lm_serve": lm_info}))
+
+    # the same requests with the partition plan on its torch arm
+    os.environ[ops.PARTITION_PLAN_ENV] = "torch"
+    try:
+        ops.reset_launch_counts()
+        _, reqs_t, ticks_t, wall_t, steps_t, plan_t = lm_serve()
+        check(sum(ops.launch_counts().values()) == 0, "LM server: the torch arm launched a kernel")
+    finally:
+        del os.environ[ops.PARTITION_PLAN_ENV]
+    check(ticks_t == ticks and [r.out for r in reqs_t] == [r.out for r in reqs],
+          "LM server: token streams differ between the kernel and torch arms")
+    check(torch.equal(plan_k[0], plan_t[0]) and plan_k[1:3] == plan_t[1:3]
+          and all(torch.equal(a, b) for a, b in zip(plan_k[3], plan_t[3])),
+          "LM server: layer 0's dispatch plan of step 1 differs between the arms")
+    logit_diff = max(float((a["logits"].float() - b["logits"].float()).abs().max())
+                     for a, b in zip(steps, steps_t))
+    check(len(steps) == len(steps_t) and all(torch.equal(a["logits"], b["logits"])
+                                             for a, b in zip(steps, steps_t)),
+          f"LM server: logits differ between the kernel and torch arms (max {logit_diff})")
+    log(f"(u) {LM_ARCH} at full size (bf16, {param_bytes} bytes of weights): {LM_REQUESTS} "
+        f"requests in {ticks} ticks, no request error, no resilience counter moved; decode "
+        f"step median {lm_info['step_ms_median']:.3f} ms, p90 {lm_info['step_ms_p90']:.3f} ms; "
+        f"{lm_info['generated_tokens_per_s']:.1f} generated tokens/s; peak {lm_peak} bytes; "
+        f"{lm_cfg.num_layers} launches of each routing kernel per step; the torch arm's run "
+        f"equal bit for bit (streams, every step's logits, the first dispatch plan; torch arm "
+        f"wall {wall_t:.3f} s against {wall:.3f} s) ({card})")
+    del steps_t, reqs_t
+
+    # one warm decode step profiled, and one layer's expert FFN alone
+    tok = torch.as_tensor(eng.tokens, device="cuda")
+    pos = torch.as_tensor(eng.slot_pos, device="cuda")
+    lm_prof = profile_run(lambda: LM.decode_step(lm_cfg, lm_params, eng.cache, tok, pos),
+                          groups=LM_KERNEL_GROUPS)
+    lp0 = {k: lm_params["layers"]["moe"][k][0] for k in ("wg", "wu", "wd")}
+    xin = torch.randn((lm_cfg.moe.num_experts, MOE._capacity(
+        LM_BATCH, lm_cfg.moe.top_k, lm_cfg.moe.num_experts, lm_cfg.moe.capacity_factor),
+        lm_cfg.d_model), dtype=torch.bfloat16, device="cuda")
+    ffn_ms = cuda_ms(torch, lambda: MOE._expert_ffn(xin, lp0["wg"], lp0["wu"], lp0["wd"]))
+    ffn_flop = 2 * 3 * xin.shape[0] * xin.shape[1] * lm_cfg.d_model * lm_cfg.moe.d_expert
+    log(json.dumps({"lm_decode_step_profile": {
+        "card": card, **lm_prof,
+        "expert_ffn_one_layer_ms": ffn_ms, "expert_ffn_slots": list(xin.shape[:2]),
+        "expert_ffn_flop": ffn_flop, "expert_ffn_tflop_per_s": ffn_flop / ffn_ms / 1e9,
+        "expert_ffn_per_step_ms": ffn_ms * lm_cfg.num_layers}}))
+    del xin, lp0, eng, tok, pos
+
+    # the routing kernels at the decode shape: 32 digits, 60 bins
+    rd = plan_k[0].to(torch.int32).contiguous()
+    nbins = plan_k[1]
+    per_step = {k: lm_cfg.num_layers for k in routing}
+    shape = f"{nbins} bins, {rd.shape[0]} digits: the MoE routing plan of one decode step"
+    record_hist(rd, nbins, shape, launches=lm_launches["block_histograms"])
+    rbase = krp.tile_base(krp.block_histograms(rd, nbins))[0]
+    record("partition_ranks", [krp.rank_with_base(rd, rbase, nbins)],
+           [ref.partition_ranks(rd, nbins)], lambda: krp.rank_with_base(rd, rbase, nbins),
+           lambda: ref.partition_ranks(rd, nbins), lambda: torch.sort(rd, stable=True),
+           4 * rd.shape[0] + 4 * rbase.numel() + 4 * rd.shape[0], shape=shape,
+           launches=lm_launches["partition_ranks"])
+    for row in results[-2:]:
+        row["launches_per_decode_step"] = per_step[row["name"]]
+    # the whole routing plan as a layer calls it, on its kernel arm and on
+    # its torch arm (one stable sort and a bincount)
+    plan_pairs = paired_ms(torch, lambda: prim.plan_partition_permutation(rd, nbins, impl="cuda"),
+                           lambda: prim.plan_partition_permutation(rd, nbins, impl="torch"))
+    log(json.dumps({"lm_routing_plan_kernel_arm_against_torch_arm": {"card": card,
+                                                                     **plan_pairs}}))
+    del lm_params, plan_k, plan_t, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the card against the CPU: full width cut to 1 layer, float32, TF32 off
+    cfg1 = lm_cfg.replace(num_layers=1)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    p_card = LM.init_params(cfg1, torch.Generator("cuda").manual_seed(1), torch.float32, "cuda")
+    p_host = map_leaves(lambda t: t.cpu(), p_card, is_leaf=torch.is_tensor)
+    toks = np.random.default_rng(1).integers(3, cfg1.vocab_size, (3, 2)).astype(np.int32)
+    out = {}
+    real_route = MOE._route
+    try:
+        for where, p in (("cuda", p_card), ("cpu", p_host)):
+            routes = []
+
+            def route_fn(p_, x2, k, routes=routes):
+                r = real_route(p_, x2, k)
+                routes.append((x2.float().cpu(), r[0].cpu()))
+                return r
+
+            MOE._route = route_fn
+            cache = LM.init_cache(cfg1, p, 2, 8, None, torch.float32)
+            logits = []
+            for step in range(3):
+                lg, cache = LM.decode_step(cfg1, p, cache, torch.from_numpy(toks[step]).to(where),
+                                           step)
+                logits.append(lg.cpu())
+            out[where] = (torch.stack(logits), routes)
+    finally:
+        MOE._route = real_route
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    lc, lh = out["cuda"][0], out["cpu"][0]
+    err = float((lc - lh).abs().max())
+    scale = float(lh.abs().max())
+    check(err <= LM_CPU_LOGIT_RTOL * scale,
+          f"LM at 1 layer: card and CPU logits differ by {err} (max |logit| {scale})")
+    exempt = 0
+    router = p_host["layers"]["moe"]["router"][0]
+    for (xc, ec), (xh, eh) in zip(out["cuda"][1], out["cpu"][1]):
+        probs = torch.softmax(xh @ router, dim=-1).sort(dim=-1, descending=True).values
+        sure = (probs[:, 3] - probs[:, 4]) > LM_CPU_ROUTE_GAP
+        exempt += int((~sure).sum())
+        check(torch.equal(ec.sort(dim=-1).values[sure], eh.sort(dim=-1).values[sure]),
+              "LM at 1 layer: the card and the CPU chose different experts")
+    log(json.dumps({"lm_card_against_cpu": {
+        "card": card, "layers": 1, "dtype": "float32", "tf32": False, "steps": 3, "batch": 2,
+        "max_abs_logit_diff": err, "max_abs_logit": scale, "rtol": LM_CPU_LOGIT_RTOL,
+        "route_rows": 3 * 2, "route_rows_exempt": exempt}}))
+    del p_card, p_host, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the launcher at full size: olmo-1b, float32, its own defaults
+    launch_ticks, launch_s = timed(torch, lambda: lm_launch.main(["--arch", "olmo-1b",
+                                                                  "--full"]))
+    log(json.dumps({"lm_launcher": {"card": card, "argv": ["--arch", "olmo-1b", "--full"],
+                                    "ticks": launch_ticks, "wall_s": launch_s}}))
+    check(launch_ticks > 0, "the serve launcher ran no tick")
+
+
 def main() -> None:
     import torch
     from torch.autograd import DeviceType
@@ -415,8 +686,10 @@ def main() -> None:
     check(int(cnt) == n_s, f"join rows {int(cnt)} != {n_s} (match ratio 1.0)")
 
     # -- where the time of a warm query goes --------------------------------
-    def profile_run(fn):
-        """One profiled warm run: device time by kernel and the idle share."""
+    def profile_run(fn, groups=None):
+        """One profiled warm run: device time by kernel and the idle share;
+        with `groups` ({group: name substrings}), every kernel's device time
+        summed by the first group whose substring its name holds."""
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             _, wall = timed(torch, fn)
         # names are cut for the tables, and many kernels share a cut name:
@@ -432,9 +705,17 @@ def main() -> None:
         def top(us):
             return {k: v / 1e3 for k, v in sorted(us.items(), key=lambda kv: -kv[1])[:15]}
 
-        return {"profiled_wall_s": wall, "device_busy_s": busy_s if busy_s else "not measured",
-                "device_idle_share": 1 - busy_s / wall if busy_s else "not measured",
-                "top_kernels_ms": top(kernel_us), "top_host_ops_self_ms": top(host_us)}
+        out = {"profiled_wall_s": wall, "device_busy_s": busy_s if busy_s else "not measured",
+               "device_idle_share": 1 - busy_s / wall if busy_s else "not measured",
+               "top_kernels_ms": top(kernel_us), "top_host_ops_self_ms": top(host_us)}
+        if groups:
+            by_group = dict.fromkeys(list(groups) + ["other"], 0.0)
+            for name, us in kernel_us.items():
+                g = next((g for g, keys in groups.items() if any(k in name for k in keys)),
+                         "other")
+                by_group[g] += us / 1e3
+            out["device_ms_by_group"] = by_group
+        return out
 
     walls = sorted(timed(torch, query)[1] for _ in range(3))
     log(json.dumps({"j2_profile": {"query_s_median_of_3": walls[1], **profile_run(query)}}))
@@ -1137,10 +1418,12 @@ def main() -> None:
     results = []
 
     def record(name, kernel_out, plain_out, kernel_fn, plain_fn, library_fn, nbytes, nops=0,
-               plain_reps=5, library=None, shape=None):
+               plain_reps=5, library=None, shape=None, launches=None):
         """Integer outputs must equal the plain version's; float outputs may
         differ by KERNEL_SUM_RTOL of their magnitude. A kernel timed at more
-        than one shape has a row per shape, named by `shape`."""
+        than one shape has a row per shape, named by `shape`; `launches`
+        (default: the J2 paths' count) is the count of the path that gives
+        the kernel this shape."""
         for k, p in zip(kernel_out, plain_out):
             check(k.shape == p.shape and k.dtype == p.dtype, f"{name}: shape/dtype differ")
             if k.dtype.is_floating_point:
@@ -1154,7 +1437,8 @@ def main() -> None:
                   for k, p in zip(kernel_out, plain_out))
         bound_b, bound_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
         row = {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
-               "replaces": KERNEL_SOURCES[name][1], "launches": path_launches[name],
+               "replaces": KERNEL_SOURCES[name][1],
+               "launches": path_launches[name] if launches is None else launches,
                "max_abs_err": err, "ms": cuda_ms(torch, kernel_fn),
                "plain_ms": cuda_ms(torch, plain_fn, reps=plain_reps, warmup=1),
                "bound_ms": max(bound_b, bound_o),
@@ -1177,7 +1461,7 @@ def main() -> None:
     nb, tile = 256, krp.TILE
     hist = krp.block_histograms(pd, nb)
 
-    def record_hist(d, bins, shape):
+    def record_hist(d, bins, shape, launches=None):
         """block_histograms on digits d against its plain version; the library
         call is one bincount of (tile, digit) pairs made beforehand."""
         tiles = -(-d.shape[0] // tile)
@@ -1186,7 +1470,7 @@ def main() -> None:
                [ref.block_histograms(d, bins, tile)], lambda: krp.block_histograms(d, bins),
                lambda: ref.block_histograms(d, bins, tile),
                lambda: torch.bincount(flat, minlength=tiles * bins),
-               4 * d.shape[0] + 4 * tiles * bins, shape=shape)
+               4 * d.shape[0] + 4 * tiles * bins, shape=shape, launches=launches)
 
     record_hist(pd, nb, "256 bins: the join plan's first pass over S's digits")
     base, _, _ = krp.tile_base(hist)
@@ -1650,6 +1934,9 @@ def main() -> None:
         f"{sorted(chaos['families'])}, pressure, memory): ok; baseline p50 {base['p50_s']:.6f} s, "
         f"p99 {base['p99_s']:.6f} s, {base['throughput_qps']:.1f} queries/s ({card})")
     clock.done("8t chaos soak")
+
+    lm_phase(torch, card, record, record_hist, profile_run, results)
+    clock.done("9u LM decode server")
 
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,5 +12,9 @@ cost-based query engine: logical plans, statistics, the optimizer and its
 physical plans, the executor and the memory budget (`engine`); the
 escalation runtime and fault injection (`resilience`), the metrics
 registry, residuals and the calibration store (`obs`), and the relational
-workload generator (`data`).
+workload generator (`data`); and the first slice of the LM stack: the
+architecture configs (`configs`), the dense and MoE models whose token
+routing runs on the radix-partition kernels (`models`), the sharding rule
+tables (`dist`), the continuous-batching decode server (`serve.engine`) and
+its launcher (`launch.serve`).
 """

@@ -1242,3 +1242,74 @@ def test_chaos_soak_on_card(dev):
     assert rep["config"]["device"] == "cuda"
     assert rep["families"]["estimates"]["counters"]["qserve.saturations"] > 0
     assert rep["memory"]["big_morsels"] and min(rep["memory"]["big_morsels"]) >= 2
+
+
+# ---------------------------------------------------------------------------
+# the LM server: token routing on the radix-partition kernels
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n", [4, 16, 32, 4096])
+def test_moe_dispatch_plan_on_card_equals_cpu(dev, n):
+    """The MoE dispatch plan at decode's shapes (one partial 1024-digit
+    tile, most of the 60 bins empty) and at a prefill's: the card's plan
+    (one histogram and one rank launch) equals the CPU arm's exactly."""
+    from repro_torch.models import moe as TMOE
+
+    E, k = 60, 4
+    rng = np.random.default_rng(n)
+    eidx = np.stack([rng.choice(E, k, replace=False) for _ in range(n // k)]).astype(np.int32)
+    for C in (TMOE._capacity(n // k, k, E, 1.25), 1):
+        before = ops.launch_counts()
+        got = TMOE._plan_sort(_on(dev, eidx), E, C)
+        after = ops.launch_counts()
+        want = TMOE._plan_sort(torch.from_numpy(eidx), E, C)
+        for g, w in zip(got, want):
+            assert g.is_cuda and g.dtype == w.dtype and torch.equal(g.cpu(), w)
+        assert after["block_histograms"] == before["block_histograms"] + 1
+        assert after["partition_ranks"] == before["partition_ranks"] + 1
+    d = _on(dev, eidx.reshape(-1))
+    for x, y in zip(T.primitives.plan_partition_permutation(d, E),
+                    T.primitives.plan_partition_permutation(d, E, impl="torch")):
+        assert torch.equal(x, y)
+
+
+def _qwen_reduced(dev, dtype=torch.float32):
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.models import model as M
+
+    cfg = get_reduced_config("qwen2-moe-a2.7b")
+    return cfg, M.init_params(cfg, torch.Generator(dev).manual_seed(0), dtype, dev)
+
+
+def test_moe_decode_on_card_equals_its_torch_arm_bit_for_bit(dev, monkeypatch):
+    from repro_torch.models import model as M
+
+    cfg, params = _qwen_reduced(dev)
+    tok = _on(dev, np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 6)).astype(np.int32))
+    runs = {}
+    for arm in ("cuda", "torch"):
+        monkeypatch.setenv(ops.PARTITION_PLAN_ENV, arm)
+        cache = M.init_cache(cfg, params, 3, 16, None, torch.float32)
+        before = ops.launch_counts()["partition_ranks"]
+        logits = []
+        for step in range(6):
+            lg, cache = M.decode_step(cfg, params, cache, tok[:, step], step)
+            logits.append(lg)
+        launched = ops.launch_counts()["partition_ranks"] - before
+        assert launched == (6 * cfg.num_layers if arm == "cuda" else 0)
+        runs[arm] = (torch.stack(logits), cache["kv"]["k"], cache["kv"]["v"])
+    assert all(torch.equal(a, b) for a, b in zip(runs["cuda"], runs["torch"]))
+
+
+def test_serve_engine_completes_on_card(dev):
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg, params = _qwen_reduced(dev, torch.bfloat16)
+    eng = ServeEngine(cfg, params, max_batch=3, max_len=32, eos_id=-1, dtype=torch.bfloat16)
+    assert eng.cache["kv"]["k"].is_cuda
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab_size, 3).tolist(), max_tokens=4)
+            for i in range(5)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    assert all(r.done and not r.error and len(r.out) == 4 for r in reqs)

@@ -47,6 +47,13 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "import repro_torch.analysis.contracts, repro_torch.analysis.__main__\n"
             "import repro_torch.serve, repro_torch.serve.query, repro_torch.serve.chaos\n"
             "import repro_torch.serve.__main__, repro_torch.resilience.__main__\n"
+            "import repro_torch.configs, repro_torch.configs.base\n"
+            "from repro_torch.configs.base import get_config, list_archs\n"
+            "[get_config(a) for a in list_archs()]\n"
+            "import repro_torch.models, repro_torch.models.params, repro_torch.models.layers\n"
+            "import repro_torch.models.moe, repro_torch.models.model\n"
+            "import repro_torch.dist, repro_torch.dist.sharding\n"
+            "import repro_torch.serve.engine, repro_torch.launch, repro_torch.launch.serve\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
