@@ -143,6 +143,26 @@
    (logits within 1e-3 of their largest magnitude, expert choices equal
    where the 4th and 5th router probabilities differ by more than 1e-5);
    `repro_torch.launch.serve.main(["--arch", "olmo-1b", "--full"])`.
+10. (v) The LM trainer: qwen2-moe-a2.7b at its published widths cut to 4 of
+   its 24 layers (2,904,541,184 parameters), float32 parameters, gradients
+   and AdamW moments (cosine schedule to 3e-4, clipping at 1.0), drawn from
+   `torch.Generator("cuda").manual_seed(0)`; 10 steps of
+   `build_train_step(remat=True)` under `train_loop` on 4 x 512 tokens of
+   `make_batch_fn(151936, 4, 512, seed=0)`, the launch counters set to 0
+   just before and read just after: exactly 8 `block_histograms` and 8
+   `partition_ranks` launches per step (4 in the forward, 4 in the
+   recompute) and no other kernel; finite losses, the last below the first;
+   step median and p90, trained tokens/s, model TFLOP/s (models/flops.py)
+   and executed TFLOP/s (the padded expert slots), peak memory against the
+   state's bytes. The same 10 steps on the partition plan's torch arm and
+   once more on the kernels: losses, grad norms and final parameters equal
+   bit for bit. One step profiled; the routing kernels' rows at the train
+   shape (8,192 digits, 60 bins); loss and gradients at 1 layer, batch 1 x
+   64, TF32 off, on the card against the CPU (loss within 1e-5 relative,
+   every gradient leaf within 1e-4 of its max |g|); 20 steps of the reduced
+   config straight against 10 + a resume through checkpoints, bit for bit;
+   `repro_torch.launch.train.main(["--arch", "olmo-1b", "--full", "--steps",
+   "10"])` with finite losses.
 Every phase prints its seconds; the card's name and power limit stand in
 the JSON line of every new number.
 
@@ -227,6 +247,26 @@ LM_KERNEL_GROUPS = {"matmuls": ("gemm", "cutlass", "xmma", "sm90_", "nvjet", "cu
                     "softmax": ("softmax",),
                     "gathers, scatters and copies": ("index", "gather", "scatter", "copy",
                                                      "cat", "Memcpy", "Memset")}
+# the LM trainer's cell: qwen2-moe-a2.7b at its published widths cut to 4 of
+# its 24 layers, float32 parameters, gradients and AdamW moments (as
+# launch/train.py trains); 4 x 512 tokens a step from the synthetic stream
+# (numpy seed 0), 10 steps, each layer recomputed in the backward
+TRAIN_LAYERS, TRAIN_PARAMS = 4, 2_904_541_184
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 10
+TRAIN_PEAK_LR, TRAIN_WARMUP = 3e-4, 2
+# the card against the CPU at 1 layer of the same widths, batch 1 x seq 64,
+# float32, TF32 off: loss within 1e-5 relative, every gradient leaf within
+# 1e-4 of its leaf's max |g|
+TRAIN_CPU_LOSS_RTOL, TRAIN_CPU_GRAD_TOL = 1e-5, 1e-4
+# kernel-name substrings of the train step's device time, by group (the
+# first group whose substring a kernel's name holds)
+TRAIN_KERNEL_GROUPS = {"matmuls": LM_KERNEL_GROUPS["matmuls"],
+                       "routing kernels": ("block_histograms", "partition_ranks"),
+                       "softmax": ("softmax",),
+                       "reductions": ("reduce",),
+                       "gathers, scatters and copies": LM_KERNEL_GROUPS[
+                           "gathers, scatters and copies"],
+                       "elementwise": ("elementwise",)}
 KERNEL_SOURCES = {
     "block_histograms": ("src/repro_torch/csrc/block_histograms.cu",
                          "src/repro/kernels/radix_partition.py:49"),
@@ -579,6 +619,269 @@ def lm_phase(torch, card, record, record_hist, profile_run, results) -> None:
     log(json.dumps({"lm_launcher": {"card": card, "argv": ["--arch", "olmo-1b", "--full"],
                                     "ticks": launch_ticks, "wall_s": launch_s}}))
     check(launch_ticks > 0, "the serve launcher ran no tick")
+
+
+def train_phase(torch, card, record, record_hist, profile_run, results) -> None:
+    """(v) The LM trainer: qwen2-moe-a2.7b at its published widths cut to 4
+    layers, float32 with AdamW, 10 steps of `build_train_step(remat=True)`
+    under `train_loop`, its MoE routing on the radix-partition kernels in
+    every forward and every recompute; the same steps on the partition
+    plan's torch arm and once more on the kernels, bit for bit; one profiled
+    step; the routing kernels' rows at the train shape (appended to
+    `results`); loss and gradients on the card against the CPU at 1 layer;
+    checkpoint resume on the reduced config; the train launcher at full
+    size (olmo-1b)."""
+    import gc
+
+    from repro_torch.configs.base import ShapeSpec, get_config, get_reduced_config
+    from repro_torch.core import primitives as prim
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import radix_partition as krp
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import flops as FL
+    from repro_torch.models import model as LM
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.params import leaves, map_leaves
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    from repro_torch.train.step import build_train_step
+
+    dev = "cuda"
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def tensors(tree):
+        return leaves(tree, torch.is_tensor)
+
+    free()
+    live_before = torch.cuda.memory_allocated()
+    log(f"before the train phase: {live_before} bytes still allocated")
+    cfg = get_config(LM_ARCH).replace(num_layers=TRAIN_LAYERS)
+    n_params = LM.num_params(cfg)
+    check(n_params == TRAIN_PARAMS, f"{LM_ARCH} at {TRAIN_LAYERS} layers: {n_params} parameters, "
+          f"expected {TRAIN_PARAMS}")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    state_bytes = 16 * n_params  # parameters, gradients and two moments in float32
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    cap = MOE._capacity(tokens, cfg.moe.top_k, cfg.moe.num_experts, cfg.moe.capacity_factor)
+    model_flop = FL.estimate(cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                             {}).model_flops
+    # executed: every layer's forward four times (forward, recompute, and a
+    # backward of twice its FLOPs) with each expert padded to `cap` slots;
+    # the head's three times
+    m = cfg.moe
+    layer_flop = (FL._attn_flops(TRAIN_BATCH, TRAIN_SEQ, cfg)
+                  + 2 * 3 * m.num_experts * cap * cfg.d_model * m.d_expert
+                  + 2 * tokens * cfg.d_model * m.num_experts
+                  + 2 * 3 * tokens * cfg.d_model * m.shared_d_ff)
+    exec_flop = 4 * cfg.num_layers * layer_flop + 3 * 2 * tokens * cfg.d_model * cfg.padded_vocab
+    data = make_batch_fn(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0, cfg=cfg, device=dev)
+    routing = ("block_histograms", "partition_ranks")
+    per_step = {k: 2 * cfg.num_layers if k in routing else 0 for k in ops.launch_counts()}
+
+    def run(steps=TRAIN_STEPS):
+        """10 steps from the seed-0 weights through train_loop; per step:
+        host ms from a synchronize to the loss on the host, loss, grad norm
+        and launches; the first routing plan's digits."""
+        params = LM.init_params(cfg, torch.Generator(dev).manual_seed(0), torch.float32,
+                                dev)
+        opt = AdamW(lr=cosine_schedule(TRAIN_PEAK_LR, warmup=TRAIN_WARMUP, total=steps),
+                    clip_norm=1.0)
+        state = opt.init(params)
+        step, _, _ = build_train_step(cfg, None, None, opt, remat=True)
+        rec, plans = [], []
+        real_plan = MOE._plan_sort
+
+        def plan_fn(expert_idx, E, C):
+            if not plans:
+                plans.append((expert_idx.reshape(-1).to(torch.int32).clone(), E, C))
+            return real_plan(expert_idx, E, C)
+
+        def timed_step(p, s_, b):
+            torch.cuda.synchronize()
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            out = step(p, s_, b)
+            loss, gnorm = float(out[2]["loss"]), float(out[2]["grad_norm"])
+            ms = (time.perf_counter() - t0) * 1e3
+            after = ops.launch_counts()
+            rec.append({"ms": ms, "loss": loss, "grad_norm": gnorm,
+                        "launches": {k: after[k] - before[k] for k in after}})
+            return out
+
+        MOE._plan_sort = plan_fn
+        try:
+            params, state, report = train_loop(timed_step, params, state, data,
+                                               LoopConfig(total_steps=steps, log_every=steps),
+                                               log=log)
+        finally:
+            MOE._plan_sort = real_plan
+        check(report.steps_run == steps, f"train loop ran {report.steps_run} steps")
+        return params, state, step, rec, plans[0]
+
+    # the main path: the kernel arm, counts set to 0 just before
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (params, state, step, rec_k, plan_k), wall_k = timed(torch, run)
+    train_launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for i, r in enumerate(rec_k):
+        check(r["launches"] == per_step, f"train step {i}: launches {r['launches']}, expected "
+              f"{2 * cfg.num_layers} of each routing kernel and nothing else")
+    check(train_launches == {k: TRAIN_STEPS * v for k, v in per_step.items()},
+          f"trainer: launches {train_launches} over {TRAIN_STEPS} steps")
+    losses = [r["loss"] for r in rec_k]
+    check(all(np.isfinite(losses)) and all(np.isfinite([r["grad_norm"] for r in rec_k])),
+          f"trainer: a loss or grad norm is not finite ({losses})")
+    check(losses[-1] < losses[0], f"trainer: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    steady = [r["ms"] for r in rec_k[2:]]
+    med = float(np.median(steady))
+    info = {"card": card, "arch": LM_ARCH, "layers": cfg.num_layers, "params": n_params,
+            "dtype": "float32", "tf32": tf32, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "tokens_per_step": tokens, "steps": TRAIN_STEPS, "expert_capacity": cap,
+            "first_step_ms": rec_k[0]["ms"], "step_ms_median": med,
+            "step_ms_p90": float(np.percentile(steady, 90)), "steady_steps": len(steady),
+            "trained_tokens_per_s": tokens * 1e3 / med,
+            "model_flop_per_step": model_flop, "model_tflop_per_s": model_flop / med / 1e9,
+            "executed_flop_per_step": exec_flop, "executed_tflop_per_s": exec_flop / med / 1e9,
+            "state_bytes": state_bytes, "peak_device_bytes": peak,
+            "peak_above_phase_start_bytes": peak - live_before, "run_wall_s": wall_k,
+            "losses": losses, "grad_norms": [r["grad_norm"] for r in rec_k],
+            "launches": train_launches, "launches_per_train_step": {k: per_step[k]
+                                                                   for k in routing}}
+    log(json.dumps({"lm_train": info}))
+    final_k = [t.cpu() for t in tensors(params)]
+    del params, state, step
+    free()
+
+    def same_run(rec, params, what):
+        check([r["loss"] for r in rec] == losses
+              and [r["grad_norm"] for r in rec] == info["grad_norms"],
+              f"trainer: {what}: losses or grad norms differ from the kernel arm's")
+        check(all(torch.equal(a, b.cpu()) for a, b in zip(final_k, tensors(params))),
+              f"trainer: {what}: final parameters differ from the kernel arm's")
+
+    # the same steps with the partition plan on its torch arm
+    os.environ[ops.PARTITION_PLAN_ENV] = "torch"
+    try:
+        ops.reset_launch_counts()
+        (params, _, _, rec_t, plan_t), wall_t = timed(torch, run)
+        check(sum(ops.launch_counts().values()) == 0, "trainer: the torch arm launched a kernel")
+    finally:
+        del os.environ[ops.PARTITION_PLAN_ENV]
+    check(torch.equal(plan_k[0], plan_t[0]), "trainer: the first plan's digits differ")
+    same_run(rec_t, params, "the torch arm")
+    del params
+    free()
+    # the kernel arm once more, then one more step profiled
+    (params, state, step, rec_r, _), wall_r = timed(torch, run)
+    same_run(rec_r, params, "a second kernel-arm run")
+    prof = profile_run(lambda: float(step(params, state, data(TRAIN_STEPS))[2]["loss"]),
+                       groups=TRAIN_KERNEL_GROUPS)
+    log(json.dumps({"lm_train_step_profile": {"card": card, **prof}}))
+    log(f"(v) {LM_ARCH} at {cfg.num_layers} of 24 layers ({n_params} parameters, float32, TF32 "
+        f"{'on' if tf32 else 'off'}): {TRAIN_STEPS} steps of {tokens} tokens, step median "
+        f"{med:.3f} ms, p90 {info['step_ms_p90']:.3f} ms; {info['trained_tokens_per_s']:.1f} "
+        f"trained tokens/s; {info['model_tflop_per_s']:.2f} model and "
+        f"{info['executed_tflop_per_s']:.2f} executed TFLOP/s; peak {peak} bytes against "
+        f"{state_bytes} of state; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"{2 * cfg.num_layers} launches of each routing kernel per step; the torch arm and a "
+        f"second kernel-arm run equal bit for bit (losses, grad norms, final parameters; runs "
+        f"{wall_k:.3f}, {wall_t:.3f}, {wall_r:.3f} s) ({card})")
+    del params, state, step, final_k
+    free()
+
+    # the routing kernels at the train shape: 8,192 digits, 60 bins
+    rd, nbins = plan_k[0].contiguous(), plan_k[1]
+    shape = f"{nbins} bins, {rd.shape[0]} digits: the MoE routing plan of one train step"
+    record_hist(rd, nbins, shape, launches=train_launches["block_histograms"])
+    rbase = krp.tile_base(krp.block_histograms(rd, nbins))[0]
+    record("partition_ranks", [krp.rank_with_base(rd, rbase, nbins)],
+           [ref.partition_ranks(rd, nbins)], lambda: krp.rank_with_base(rd, rbase, nbins),
+           lambda: ref.partition_ranks(rd, nbins), lambda: torch.sort(rd, stable=True),
+           4 * rd.shape[0] + 4 * rbase.numel() + 4 * rd.shape[0], shape=shape,
+           launches=train_launches["partition_ranks"])
+    for row in results[-2:]:
+        row["launches_per_train_step"] = per_step[row["name"]]
+    plan_pairs = paired_ms(torch, lambda: prim.plan_partition_permutation(rd, nbins, impl="cuda"),
+                           lambda: prim.plan_partition_permutation(rd, nbins, impl="torch"))
+    log(json.dumps({"lm_train_routing_plan_kernel_arm_against_torch_arm": {"card": card,
+                                                                           **plan_pairs}}))
+
+    # loss and gradients on the card against the CPU: 1 layer, batch 1 x 64
+    cfg1 = cfg.replace(num_layers=1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        p_card = LM.init_params(cfg1, torch.Generator(dev).manual_seed(1), torch.float32,
+                                dev)
+        p_host = map_leaves(lambda t: t.cpu(), p_card, is_leaf=torch.is_tensor)
+        toks = make_batch_fn(cfg1.vocab_size, 1, 64, seed=1, device="cpu")(0)["tokens"]
+        out = {}
+        for where, p in ((dev, p_card), ("cpu", p_host)):
+            ps = [t.detach().requires_grad_() for t in tensors(p)]
+            it = iter(ps)
+            tree = map_leaves(lambda _: next(it), p, is_leaf=torch.is_tensor)
+            loss, _m = LM.loss_fn(cfg1, tree, {"tokens": toks.to(where)})
+            out[where] = (float(loss.detach()),
+                          [g.cpu() for g in torch.autograd.grad(loss, ps)])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    loss_err = abs(out[dev][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    grad_err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(out[dev][1], out["cpu"][1]))
+    log(json.dumps({"lm_train_card_against_cpu": {
+        "card": card, "layers": 1, "batch": 1, "seq": 64, "dtype": "float32", "tf32": False,
+        "loss_cuda": out[dev][0], "loss_cpu": out["cpu"][0], "loss_rel_err": loss_err,
+        "grad_max_err_over_leaf_max": grad_err, "loss_rtol": TRAIN_CPU_LOSS_RTOL,
+        "grad_tol": TRAIN_CPU_GRAD_TOL}}))
+    check(loss_err <= TRAIN_CPU_LOSS_RTOL, f"trainer at 1 layer: card and CPU losses differ by "
+          f"{loss_err} relative")
+    check(grad_err <= TRAIN_CPU_GRAD_TOL, f"trainer at 1 layer: a gradient leaf differs by "
+          f"{grad_err} of its max |g|")
+    del p_card, p_host, out
+    free()
+
+    # checkpoint resume on the card (reduced config; the kernels launch)
+    rcfg = get_reduced_config(LM_ARCH)
+    rdata = make_batch_fn(rcfg.vocab_size, 4, 32, seed=0, cfg=rcfg, device=dev)
+
+    def resume_run(total, ckpt_dir=None):
+        opt = AdamW(lr=cosine_schedule(1e-3, warmup=2, total=20))
+        params = LM.init_params(rcfg, torch.Generator(dev).manual_seed(0), torch.float32,
+                                dev)
+        step, _, _ = build_train_step(rcfg, None, None, opt)
+        return train_loop(step, params, opt.init(params), rdata,
+                          LoopConfig(total_steps=total, ckpt_dir=ckpt_dir, ckpt_every=5),
+                          log=lambda *_: None)
+
+    before = ops.launch_counts()["partition_ranks"]
+    straight, _, _ = resume_run(20)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ck:
+        resume_run(10, ck)
+        resumed, _, rep = resume_run(20, ck)
+    check(rep.resumed_from == 10 and rep.steps_run == 10,
+          f"trainer resume: resumed from {rep.resumed_from}, ran {rep.steps_run} steps")
+    check(ops.launch_counts()["partition_ranks"] > before, "trainer resume: no kernel launched")
+    check(all(torch.equal(a, b) for a, b in zip(tensors(straight), tensors(resumed))),
+          "trainer resume: 10 + 10 steps through checkpoints differ from 20 straight")
+    log(f"(v) resume on the reduced {LM_ARCH}: 20 steps straight equal 10 + a resume to 20 bit "
+        f"for bit ({card})")
+    del straight, resumed
+    free()
+
+    # the launcher at full size: olmo-1b, float32, its own defaults
+    argv = ["--arch", "olmo-1b", "--full", "--steps", "10"]
+    report, launch_s = timed(torch, lambda: train_launch.main(argv))
+    log(json.dumps({"lm_train_launcher": {"card": card, "argv": argv, "wall_s": launch_s,
+                                          "steps": report.steps_run,
+                                          "first_loss": report.losses[0],
+                                          "last_loss": report.losses[-1]}}))
+    check(report.steps_run == 10 and all(np.isfinite(report.losses)),
+          f"the train launcher: {report.steps_run} steps, losses {report.losses}")
+    free()
 
 
 def main() -> None:
@@ -1937,6 +2240,9 @@ def main() -> None:
 
     lm_phase(torch, card, record, record_hist, profile_run, results)
     clock.done("9u LM decode server")
+
+    train_phase(torch, card, record, record_hist, profile_run, results)
+    clock.done("10v LM trainer")
 
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

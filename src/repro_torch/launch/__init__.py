@@ -1,3 +1,3 @@
-"""Launchers of the port. So far the serving launcher (`serve`); the train,
+"""Launchers of the port: serving (`serve`) and training (`train`); the
 dry-run, mesh and roofline launchers wait for ROADMAP Queue 1's `launch/`
 item."""

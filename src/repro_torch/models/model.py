@@ -1,9 +1,10 @@
-"""Model assembly behind one API, for inference on PyTorch tensors.
+"""Model assembly behind one API, on PyTorch tensors.
 
     template(cfg)                        parameter template (P leaves)
     init_params(cfg, generator, dtype, device)   real parameters
     num_params(cfg)                      parameter count
-    forward(cfg, params, batch)          (logits, aux_loss)          [prefill]
+    forward(cfg, params, batch, remat)   (logits, aux_loss)   [train / prefill]
+    loss_fn(cfg, params, batch, remat)   (loss, {"ce", "aux"})   [train]
     cache_shapes(cfg, b, w, dtype)       decode-cache TensorSpecs
     init_cache(cfg, params, b, w, batch, dtype)   zero cache
     decode_step(cfg, params, cache, token, pos)   (logits, new_cache)
@@ -11,8 +12,13 @@
 Templates exist for the dense, MoE, vision and audio families. The forward
 pass and decode exist for the dense and MoE families; the others raise
 NotImplementedError naming the ROADMAP item that brings them. Stacked layers
-run as a Python loop over views of the stacked tensors. Nothing here records
-autograd history.
+run as a Python loop over views of the stacked tensors: `forward` takes them
+with one `unbind` per leaf, whose backward stacks the layers' gradients once
+(indexing each layer would make every layer's backward write a zero tensor
+the size of the whole stacked leaf). `forward` records autograd history
+where its inputs ask for it, with each layer recomputed in the backward
+(`remat=True`) or with its matmul outputs kept (`remat="dots"`);
+`decode_step` records none.
 
 decode_step never writes the cache it is given: it copies the stacked cache
 once and writes each layer's new key and value into the copy, which it
@@ -22,9 +28,12 @@ was (the serve engine keeps the old cache and retries).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ArchConfig
 from ..dist.sharding import shard_act
@@ -124,6 +133,13 @@ def _layer(tree, i: int):
     return map_leaves(lambda t: t[i], tree, is_leaf=torch.is_tensor)
 
 
+def _unbind_layers(tree, n: int) -> list:
+    """The n layers of a stacked tree, from one `unbind` per leaf."""
+    per_leaf = map_leaves(lambda t: t.unbind(0), tree, is_leaf=torch.is_tensor)
+    return [map_leaves(lambda u: u[i], per_leaf, is_leaf=lambda x: isinstance(x, tuple))
+            for i in range(n)]
+
+
 def _check_decoder(cfg: ArchConfig, what: str) -> None:
     if cfg.family not in ("dense", "moe"):
         raise _not_ported(cfg, what)
@@ -144,7 +160,9 @@ def _dense_layer_apply(cfg: ArchConfig, p, x):
 
 
 def _embed(cfg: ArchConfig, params, tokens):
-    x = params["embed"]["table"][tokens.long()]
+    # F.embedding's backward on the card sorts the tokens and sums each
+    # token's rows in a fixed order: the same bits every run
+    x = F.embedding(tokens.long(), params["embed"]["table"])
     return shard_act(x, ("batch", "seq", "embed"))
 
 
@@ -160,16 +178,54 @@ def _logits(cfg: ArchConfig, params, x):
     return shard_act(logits, ("batch", "seq", "vocab"))
 
 
-@torch.no_grad()
-def forward(cfg: ArchConfig, params, batch):
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat="dots": keep matmul outputs,
+    recompute the rest."""
+    if op in _MATMULS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat):
+    """remat: False | True (full recompute) | "dots" (save matmul outputs —
+    trades memory for a 4x->3x backward FLOPs multiplier)."""
+    if not remat or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                             _save_matmuls)
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
+def forward(cfg: ArchConfig, params, batch, *, remat=True):
     """Returns (logits (b, s, V), aux_loss scalar)."""
     _check_decoder(cfg, "forward")
     x = _embed(cfg, params, batch["tokens"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.num_layers):
-        x, a = _dense_layer_apply(cfg, _layer(params["layers"], i), x)
+    layer = _remat(functools.partial(_dense_layer_apply, cfg), remat)
+    for lp in _unbind_layers(params["layers"], cfg.num_layers):
+        x, a = layer(lp, x)
         aux = aux + a
     return _logits(cfg, params, x), aux
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, remat=True):
+    """Next-token CE. batch['tokens']: (b, s+1). The log-softmax is taken in
+    float32."""
+    tokens = batch["tokens"]
+    inp = dict(batch)
+    inp["tokens"] = tokens[:, :-1]
+    targets = tokens[:, 1:].long()
+    logits, aux = forward(cfg, params, inp, remat=remat)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, targets[..., None])[..., 0]
+    ce = -ll.mean()
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ===========================================================================

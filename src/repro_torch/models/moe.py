@@ -21,7 +21,9 @@ practice) and an auxiliary load-balance loss.
 
 Every integer scatter here writes each kept slot once and sends what it
 drops to a spare row or column that is cut off afterwards, so nothing is
-written out of bounds and no float is ever added by scatter.
+written out of bounds and no float is ever added by scatter. The sort
+dispatch's two gathers keep that in the backward too (`_PlanGather`): the
+gradient of a gather through the plan is a gather through its inverse.
 """
 from __future__ import annotations
 
@@ -85,28 +87,32 @@ def _expert_ffn(xin, wg, wu, wd):
 def _plan_sort(expert_idx, E: int, C: int):
     """Integer dispatch plan for one token group.
 
-    Returns (blk_tok (E, C), slot_a (t*k,), keep_a (t*k,)): the padded-
-    partition layout of hash_join applied to token->expert assignments
-    (transformation phase = stable partition by expert id)."""
+    Returns (blk_tok (E, C), slot_a (t*k,), keep_a (t*k,), blk_asg (E, C)):
+    the padded-partition layout of hash_join applied to token->expert
+    assignments (transformation phase = stable partition by expert id).
+    blk_asg holds the assignment (token * k + j) in each slot, -1 where the
+    slot is empty: the inverse of slot_a over the kept assignments, which
+    the plan gathers' backward reads."""
     t, k = expert_idx.shape
     n = t * k
     dev = expert_idx.device
     eflat = expert_idx.reshape(-1).to(torch.int32).contiguous()
     ar = torch.arange(n, dtype=torch.int32, device=dev)
-    tok = ar // k
     perm, off, _sz = prim.plan_partition_permutation(eflat, E)
+    sorted_a = perm  # the assignment at each sorted position
     perm = perm.long()
     sorted_e = eflat[perm]
-    sorted_tok = tok[perm]
     pos_in_e = ar - off[sorted_e.long()]
     keep = pos_in_e < C
     # dropped assignments land in a spare row E, cut off below
     blk = torch.full((E + 1, C), -1, dtype=torch.int32, device=dev)
-    blk[torch.where(keep, sorted_e, E).long(), torch.where(keep, pos_in_e, 0).long()] = sorted_tok
+    blk[torch.where(keep, sorted_e, E).long(), torch.where(keep, pos_in_e, 0).long()] = sorted_a
+    blk_asg = blk[:E]
     inv = torch.empty(n, dtype=torch.long, device=dev)
     inv[perm] = ar.long()  # perm is a permutation: every slot written once
     slot = sorted_e * C + torch.clamp(pos_in_e, max=C - 1)
-    return blk[:E], slot[inv], keep[inv]
+    blk_tok = torch.where(blk_asg >= 0, blk_asg // k, -1)
+    return blk_tok, slot[inv], keep[inv], blk_asg
 
 
 def _gather_rows(x, idx):
@@ -116,15 +122,42 @@ def _gather_rows(x, idx):
     return torch.where(valid, x[safe], 0)
 
 
+class _PlanGather(torch.autograd.Function):
+    """`_gather_rows(x, idx)` whose backward gathers through the inverse
+    plan instead of adding rows by scatter: row r of x was read at the
+    positions inv[r, 0..m-1] of the output (-1: none), so
+
+        grad_x[r] = grad_out[inv[r, 0]] + ... + grad_out[inv[r, m-1]]
+
+    summed in that order, with no atomics and the same bits every run. The
+    dispatch gather (x = tokens, idx = each slot's token) has inv = each
+    token's k assignment slots; the combine gather (x = expert slots, idx =
+    each assignment's slot) has inv = each slot's one assignment."""
+
+    @staticmethod
+    def forward(ctx, x, idx, inv):
+        ctx.save_for_backward(inv)
+        return _gather_rows(x, idx)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (inv,) = ctx.saved_tensors
+        grad_x = _gather_rows(grad_out, inv[:, 0])
+        for j in range(1, inv.shape[1]):
+            grad_x = grad_x + _gather_rows(grad_out, inv[:, j])
+        return grad_x, None, None
+
+
 def _dispatch_sort(p, x2, expert_idx, gates, C: int):
     """GFTR-pattern dispatch, single group (the no-mesh path)."""
     T, D = x2.shape
     E = p["wg"].shape[0]
     k = expert_idx.shape[1]
-    blk_tok, slot_a, keep_a = _plan_sort(expert_idx, E, C)
-    xin = _gather_rows(x2, blk_tok.reshape(-1)).reshape(E, C, D)
+    blk_tok, slot_a, keep_a, blk_asg = _plan_sort(expert_idx, E, C)
+    at = torch.where(keep_a, slot_a, -1)
+    xin = _PlanGather.apply(x2, blk_tok.reshape(-1), at.reshape(T, k)).reshape(E, C, D)
     out = _expert_ffn(xin, p["wg"], p["wu"], p["wd"])
-    ya = _gather_rows(out.reshape(E * C, D), torch.where(keep_a, slot_a, -1))
+    ya = _PlanGather.apply(out.reshape(E * C, D), at, blk_asg.reshape(E * C, 1))
     y = (ya.reshape(T, k, D) * gates[..., None]).sum(dim=1)
     return y.to(x2.dtype)
 

@@ -42,12 +42,17 @@ class P:
 
 
 def map_leaves(fn, tree, is_leaf=lambda x: isinstance(x, P)):
-    """Apply `fn` to every leaf of a tree of dicts, lists and tuples; dict
-    keys are visited in sorted order (the JAX package's flattening order)."""
+    """Apply `fn` to every leaf of a tree of dicts, lists, tuples and named
+    tuples; dict keys are visited in sorted order and None holds no leaf
+    (the JAX package's flattening order)."""
     if is_leaf(tree):
         return fn(tree)
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: map_leaves(fn, tree[k], is_leaf) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_leaves(fn, v, is_leaf) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(map_leaves(fn, v, is_leaf) for v in tree)
     return fn(tree)
@@ -101,13 +106,19 @@ def init_from_template(template: Any, generator: torch.Generator, dtype=torch.fl
 def params_from_numpy(tree: Any, *, dtype=None, device="cuda"):
     """A tree of numpy arrays (or anything `np.asarray` takes) as the same
     tree of tensors on `device`; floating leaves are cast to `dtype` when it
-    is given, integer leaves keep theirs."""
+    is given, integer leaves keep theirs, and bfloat16 arrays come across as
+    bfloat16 tensors."""
 
     def one(a):
-        t = torch.tensor(np.asarray(a), device=device)
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, which torch cannot read
+            t = torch.tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+        else:
+            t = torch.tensor(a, device=device)
         return t.to(dtype) if dtype is not None and t.is_floating_point() else t
 
-    return map_leaves(one, tree, is_leaf=lambda x: not isinstance(x, (dict, list, tuple)))
+    return map_leaves(one, tree,
+                      is_leaf=lambda x: x is not None and not isinstance(x, (dict, list, tuple)))
 
 
 def axis_spec(shape, axes, rules: dict[str, Any], mesh_shape: dict[str, int]) -> tuple:

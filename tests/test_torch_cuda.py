@@ -1313,3 +1313,108 @@ def test_serve_engine_completes_on_card(dev):
         eng.submit(r)
     eng.run()
     assert all(r.done and not r.error and len(r.out) == 4 for r in reqs)
+
+
+# ---------------------------------------------------------------------------
+# the trainer: the routing kernels in every forward and recompute
+# ---------------------------------------------------------------------------
+def test_routing_kernels_at_the_train_shape_equal_plain(dev):
+    """qwen2-moe's train step routes 2,048 tokens x top 4 = 8,192 digits
+    into 60 bins: 8 full tiles."""
+    rng = np.random.default_rng(8192)
+    d = _on(dev, rng.integers(0, 60, 8192).astype(np.int32))
+    hist = krp.block_histograms(d, 60)
+    assert hist.shape[0] == 8192 // krp.TILE
+    assert torch.equal(hist, ref.block_histograms(d, 60, krp.TILE))
+    base = krp.tile_base(hist)[0]
+    assert torch.equal(krp.rank_with_base(d, base, 60), ref.partition_ranks(d, 60))
+
+
+def test_plan_gather_backward_on_card_equals_plain_autograd(dev):
+    """The plan gathers' inverse-plan backward on the card against autograd
+    through the plain `_gather_rows`: the combine side bit for bit, the
+    dispatch side within float32 rounding; and the same bits on a rerun."""
+    from repro_torch.models import moe as TMOE
+
+    E, k, T, D = 60, 4, 512, 64
+    rng = np.random.default_rng(1)
+    eidx = _on(dev, np.stack([rng.choice(E, k, replace=False) for _ in range(T)])
+               .astype(np.int32))
+    C = TMOE._capacity(T, k, E, 1.25)
+    blk_tok, slot_a, keep_a, blk_asg = TMOE._plan_sort(eidx, E, C)
+    at = torch.where(keep_a, slot_a, -1)
+    x = _on(dev, rng.normal(size=(T, D)).astype(np.float32)).requires_grad_()
+    out = _on(dev, rng.normal(size=(E * C, D)).astype(np.float32)).requires_grad_()
+    g_in = _on(dev, rng.normal(size=(E * C, D)).astype(np.float32))
+    g_out = _on(dev, rng.normal(size=(T * k, D)).astype(np.float32))
+
+    def plan():
+        return torch.autograd.grad(
+            (TMOE._PlanGather.apply(x, blk_tok.reshape(-1), at.reshape(T, k)) * g_in).sum()
+            + (TMOE._PlanGather.apply(out, at, blk_asg.reshape(-1, 1)) * g_out).sum(),
+            [x, out])
+
+    got, again = plan(), plan()
+    plain = torch.autograd.grad(
+        (TMOE._gather_rows(x, blk_tok.reshape(-1)) * g_in).sum()
+        + (TMOE._gather_rows(out, at) * g_out).sum(), [x, out])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    torch.testing.assert_close(got[0], plain[0], rtol=1e-6, atol=1e-5)
+    assert torch.equal(got[1], plain[1])
+
+
+def _train_steps(cfg, params, steps, device):
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    from repro_torch.train.step import build_train_step
+
+    opt = AdamW(lr=cosine_schedule(1e-3, 1, steps))
+    state = opt.init(params)
+    step = build_train_step(cfg, None, None, opt)[0]
+    data = make_batch_fn(cfg.vocab_size, 2, 16, seed=0, device=device)
+    metrics = []
+    for s in range(steps):
+        params, state, m = step(params, state, data(s))
+        metrics.append({k: v.cpu() for k, v in m.items()})
+    return params, metrics
+
+
+def test_train_steps_on_card_repeat_bit_for_bit_and_launch_the_routing_kernels(dev):
+    from repro_torch.models.params import leaves, map_leaves
+
+    cfg, p0 = _qwen_reduced(dev)
+    runs = []
+    for _ in range(2):
+        params = map_leaves(torch.clone, p0, is_leaf=torch.is_tensor)
+        before = ops.launch_counts()
+        params, metrics = _train_steps(cfg, params, 3, dev)
+        after = ops.launch_counts()
+        # each MoE layer plans once in the forward and once in the recompute
+        assert after["partition_ranks"] - before["partition_ranks"] == 3 * 2 * cfg.num_layers
+        assert after["block_histograms"] - before["block_histograms"] == 3 * 2 * cfg.num_layers
+        runs.append((leaves(params, torch.is_tensor), metrics))
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(runs[0][1], runs[1][1]) for k in a)
+
+
+def test_train_step_on_card_equals_cpu(dev):
+    """One step of the reduced qwen2-moe on the card and on the CPU, TF32
+    off: loss within 1e-5 relative, every updated parameter within 1e-5 of
+    its leaf's largest magnitude plus 2 lr (a noise-level gradient's sign)."""
+    from repro_torch.models.params import leaves, map_leaves
+
+    cfg, p_card = _qwen_reduced(dev)
+    p_host = map_leaves(lambda t: t.cpu(), p_card, is_leaf=torch.is_tensor)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, mg = _train_steps(cfg, p_card, 1, dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want, mw = _train_steps(cfg, p_host, 1, "cpu")
+    for k in ("loss", "ce", "aux", "grad_norm"):
+        np.testing.assert_allclose(float(mg[0][k]), float(mw[0][k]), rtol=1e-5)
+    for a, b in zip(leaves(got, torch.is_tensor), leaves(want, torch.is_tensor)):
+        assert a.is_cuda
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-5 * float(b.abs().max()) + 2e-3, err

@@ -54,6 +54,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "import repro_torch.models.moe, repro_torch.models.model\n"
             "import repro_torch.dist, repro_torch.dist.sharding\n"
             "import repro_torch.serve.engine, repro_torch.launch, repro_torch.launch.serve\n"
+            "import repro_torch.data.synthetic, repro_torch.models.flops\n"
+            "import repro_torch.train, repro_torch.train.optimizer, repro_torch.train.step\n"
+            "import repro_torch.train.checkpoint, repro_torch.train.loop\n"
+            "import repro_torch.launch.train\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

@@ -370,11 +370,18 @@ def test_route_and_plan_equal_reference(E, k, T, rng):
     np.testing.assert_allclose(float(ta), float(ja), rtol=1e-5)
     for C in (JMOE._capacity(T, k, E, 1.25), 1, 3):
         jb, js, jk = JMOE._plan_sort(je, E, C)
-        tb, ts, tk = TMOE._plan_sort(te, E, C)
-        assert (tb.dtype, ts.dtype, tk.dtype) == (torch.int32, torch.int32, torch.bool)
+        tb, ts, tk, ta = TMOE._plan_sort(te, E, C)
+        assert (tb.dtype, ts.dtype, tk.dtype, ta.dtype) == \
+            (torch.int32, torch.int32, torch.bool, torch.int32)
         equal(tb, jb, "blk_tok")
         equal(ts, js, "slot_a")
         equal(tk, jk, "keep_a")
+        # each slot's assignment: its token is blk_tok's, and it is the one
+        # kept assignment whose slot this is
+        assert torch.equal(torch.where(ta >= 0, ta // k, -1), tb)
+        kept = torch.nonzero(tk)[:, 0].to(torch.int32)
+        assert torch.equal(ta.reshape(-1)[ts[kept].long()], kept)
+        assert int((ta >= 0).sum()) == kept.numel()
 
 
 def test_route_breaks_ties_toward_the_lower_expert(rng):
