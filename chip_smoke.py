@@ -163,6 +163,47 @@
    config straight against 10 + a resume through checkpoints, bit for bit;
    `repro_torch.launch.train.main(["--arch", "olmo-1b", "--full", "--steps",
    "10"])` with finite losses.
+11. (w) The hybrid: zamba2-2.7b at its published widths and depth (9 groups
+   of 6 Mamba2 layers and one shared attention block, 2,422,532,000
+   parameters) in bf16 from seed 0, served as (u) serves (16 requests, 8
+   slots, a 128-token cache): no request error and no kernel launched (SSD
+   and the recurrent decode are plain torch ops); ticks, step median and
+   p90, generated tokens/s, peak memory; one decode step profiled; a
+   teacher-forced decode of 1 x 256 tokens against one forward of them
+   (chunk 128: two chunks) through the served model's first group in
+   float32, TF32 off, logits within 1e-3 of their largest magnitude, and
+   the full depth's forward at chunk 128 beside chunk 64; one group in
+   float32 on the card against the CPU (a forward of 2 x 16 tokens and 3
+   decode steps, logits within 1e-3 of their largest magnitude).
+12. (x) The feature-join pipeline feeding xlstm-125m at its published widths
+   and depth (133,158,192 parameters, float32): U of 4,194,304 users and I
+   of 1,048,576 items (three float32 features each, numpy seed 0) on the
+   card, and 10 steps of `examples/ml_pipeline_torch.py`'s step on 8 x 512
+   fact rows a step: F ⋈ U ⋈ I by PHJ-OM (restore_order), the features
+   binned into the model's 50,304 ids, the partition_hash group-by over the
+   step's users (num_groups 4,096), one AdamW step (cosine to 3e-3 after 2
+   warm-up steps), the launch counters set to 0 just before and read just
+   after: exactly 8 `block_histograms`, 8 `partition_ranks`, 2
+   `hash_probe` and 11 `clustered_gather` launches a step and no other
+   kernel; the ms of each step's join, group-by and train step, trained
+   tokens/s, peak memory; finite losses. The joined features of the first
+   and last step equal a numpy join row for row and the tokens numpy's
+   float32 binning; the same 10 steps on the torch arms of the plan, the
+   probe and the gather give the same tokens, losses, grad norms and final
+   parameters bit for bit. One step's join and group-by profiled; one
+   sLSTM layer (512 cell steps, also profiled) and one mLSTM layer (two
+   chunks) timed alone; the four kernels' rows at the pipeline's shapes.
+13. (y) The vision and audio families in bf16 from seed 0, served as (u)
+   serves with 8 requests (the stub embeddings drawn from numpy seed 0
+   before the prompts): llama-3.2-vision-11b at its published widths cut to
+   10 of its 40 layers (two cross groups over 1,601 stub patches; the cross
+   gates set to 1), whisper-large-v3 at its published widths and depth (32
+   encoder layers over 1,500 stub frames, 32 decoder layers): no request
+   error and no kernel launched; ticks, step median and p90, generated
+   tokens/s, peak memory; one decode step profiled each; each at one group
+   (or one layer a stack) in float32 on the card against the CPU as in
+   (w), logits within 1e-2 of their largest magnitude (the random model's
+   saturated softmax, FAMILY_CPU_LOGIT_RTOL).
 Every phase prints its seconds; the card's name and power limit stand in
 the JSON line of every new number.
 
@@ -267,6 +308,47 @@ TRAIN_KERNEL_GROUPS = {"matmuls": LM_KERNEL_GROUPS["matmuls"],
                        "gathers, scatters and copies": LM_KERNEL_GROUPS[
                            "gathers, scatters and copies"],
                        "elementwise": ("elementwise",)}
+# the hybrid's cell: zamba2-2.7b at its published widths and depth in bf16,
+# served as (u) serves (16 requests over 8 slots, a 128-token cache)
+HYB_ARCH, HYB_PARAMS = "zamba2-2.7b", 2_422_532_000
+# a teacher-forced decode of 1 x 256 tokens against one forward of them
+# (chunk 128: two chunks), float32, TF32 off, through the served model's
+# first group (6 Mamba2 layers and the shared block at the published
+# widths): logits within 1e-3 of their largest magnitude. At full depth the
+# random weights amplify float32 rounding ~10x at each use of the shared
+# block (the template's fan-in scales saturate its softmax), so 54 layers
+# bound nothing: there the forward at chunk 64 is only set beside chunk 128
+HYB_TF_TOKENS, HYB_TF_LOGIT_RTOL = 256, 1e-3
+# each family on the card against the CPU at one group (or one layer a
+# stack), float32, TF32 off: a forward of 2 x 16 tokens and 3 decode steps,
+# logits within a bound of their largest magnitude: 1e-3 for the hybrid;
+# 1e-2 where attention rules the cut (vision: 4 self-attention layers,
+# whisper: an encoder and a decoder layer), since the template's fan-in
+# scale of wq (1 / sqrt(heads)) saturates the random model's softmax and a
+# near-tie of two keys moves a row by more than the devices' rounding (the
+# vision cut read 1.7e-3 of its largest logit in its first run, when this
+# bound was 1e-3)
+FAMILY_CPU_LOGIT_RTOL = {"hybrid": 1e-3, "vlm": 1e-2, "audio": 1e-2}
+# the feature-join pipeline's cell: F (8 x 512 events a step) joined to
+# U (4,194,304 users) and I (1,048,576 items) by PHJ-OM, the partition_hash
+# group-by over the step's users, and one AdamW step of xlstm-125m at its
+# published widths and depth, float32, on the tokens binned into its
+# vocabulary
+PIPE_USERS, PIPE_ITEMS, PIPE_PARAMS = 4_194_304, 1_048_576, 133_158_192
+PIPE_BATCH, PIPE_SEQ, PIPE_STEPS = 8, 512, 10
+# per step: two joins; each plans both sides in 2 passes (2^16 + 1
+# partitions for U, the top one a tail class; 2^14 + 1 for I), probes once
+# and gathers each payload column: U's 3 and the probe side's 1, then I's 3
+# and the probe side's 4
+PIPE_LAUNCHES = {"block_histograms": 8, "partition_ranks": 8, "hash_probe": 2,
+                 "clustered_gather": 11, "probe_agg": 0, "segsum_partials": 0,
+                 "lower_bound": 0, "histogram": 0}
+# the vision and audio cells, served in bf16 as (u) serves, with 8 requests:
+# llama-3.2-vision-11b at its published widths cut to 10 of its 40 layers
+# (two cross groups), whisper-large-v3 at its published widths and depth
+VIS_ARCH, VIS_LAYERS, VIS_PARAMS = "llama-3.2-vision-11b", 10, 3_231_797_252
+AUD_ARCH, AUD_PARAMS = "whisper-large-v3", 1_534_940_160
+FAMILY_REQUESTS = 8
 KERNEL_SOURCES = {
     "block_histograms": ("src/repro_torch/csrc/block_histograms.cu",
                          "src/repro/kernels/radix_partition.py:49"),
@@ -882,6 +964,556 @@ def train_phase(torch, card, record, record_hist, profile_run, results) -> None:
     check(report.steps_run == 10 and all(np.isfinite(report.losses)),
           f"the train launcher: {report.steps_run} steps, losses {report.losses}")
     free()
+
+
+def _serve(torch, cfg, params, prompts, max_tokens, dtype, stub=None):
+    """The requests through a fresh `ServeEngine` (8 slots, a 128-token
+    cache); per decode step the host ms after a synchronize and the launches.
+    Fails on a request error or a moved `resilience.serve_*` counter.
+    Returns (engine, requests, ticks, wall seconds, steps)."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs import metrics
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, max_batch=LM_BATCH, max_len=LM_MAX_LEN, dtype=dtype,
+                      batch_stub=stub)
+    steps, real_step = [], eng._step
+
+    def step_fn(p, c, tok, pos):
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        lg, cache = real_step(p, c, tok, pos)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = ops.launch_counts()
+        steps.append({"ms": ms, "launches": {k: after[k] - before[k] for k in after}})
+        return lg, cache
+
+    eng._step = step_fn
+    counters = ("resilience.serve_shed", "resilience.serve_retries",
+                "resilience.serve_evictions", "resilience.serve_deadline_evictions")
+    reqs = [Request(rid=i, prompt=list(pr), max_tokens=max_tokens)
+            for i, pr in enumerate(prompts)]
+    before = {k: metrics.counter(k).value for k in counters}
+    for r in reqs:
+        eng.submit(r)
+    ticks, wall = timed(torch, eng.run)
+    moved = {k: metrics.counter(k).value - v for k, v in before.items()}
+    check(all(r.done and not r.error for r in reqs),
+          f"{cfg.name} server: request errors {[(r.rid, r.error) for r in reqs if r.error]}")
+    check(not any(moved.values()), f"{cfg.name} server: resilience counters moved {moved}")
+    return eng, reqs, ticks, wall, steps
+
+
+def _serve_info(cfg, reqs, ticks, wall, steps, peak, live_before, card):
+    steady = [st["ms"] for st in steps[2:]]
+    generated = sum(len(r.out) for r in reqs)
+    return {"card": card, "arch": cfg.name, "layers": cfg.num_layers,
+            "requests": len(reqs), "max_batch": LM_BATCH, "max_len": LM_MAX_LEN,
+            "ticks": ticks, "decode_steps": len(steps), "first_step_ms": steps[0]["ms"],
+            "step_ms_median": float(np.median(steady)),
+            "step_ms_p90": float(np.percentile(steady, 90)), "steady_steps": len(steady),
+            "generated_tokens": generated, "serve_wall_s": wall,
+            "generated_tokens_per_s": generated / wall, "peak_device_bytes": peak,
+            "peak_above_phase_start_bytes": peak - live_before}
+
+
+def _prompts(cfg, n, rng):
+    """n prompts of 2 to 8 tokens, as (u) and the serve launcher draw them."""
+    return [rng.integers(3, cfg.vocab_size, size=rng.integers(2, 9)).tolist() for _ in range(n)]
+
+
+def _stub_np(cfg, b, rng):
+    """The family's stub embeddings (vision patches or audio frames) as the
+    launchers draw them: normal * 0.02, float32."""
+    if cfg.family == "vlm":
+        return {"vision_emb": (rng.normal(size=(b, cfg.vision_tokens, cfg.d_model))
+                               * 0.02).astype(np.float32)}
+    if cfg.family == "audio":
+        return {"enc_emb": (rng.normal(size=(b, cfg.encoder_len, cfg.d_model))
+                            * 0.02).astype(np.float32)}
+    return {}
+
+
+def _open_gates(torch, cfg, params):
+    """The vision family's cross layers are gated by tanh of zero-initialized
+    scalars: set them to 1 so that the cross attention reaches the logits."""
+    if cfg.family == "vlm":
+        params["groups"]["cross"]["gate_attn"].fill_(1.0)
+        params["groups"]["cross"]["gate_mlp"].fill_(1.0)
+
+
+def _card_against_cpu(torch, cfg, card, what):
+    """`cfg` (one group or one layer a stack) drawn in float32 on the card
+    and copied to the CPU; TF32 off: the logits of one forward of 2 x 16
+    tokens and of 3 decode steps over the real vocabulary, card against
+    CPU, within the family's FAMILY_CPU_LOGIT_RTOL of their largest
+    magnitude."""
+    import gc
+
+    from repro_torch.models import model as LM
+    from repro_torch.models.params import map_leaves
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(1)
+    toks = rng.integers(3, cfg.vocab_size, (2, 16)).astype(np.int32)
+    stub = _stub_np(cfg, 2, rng)
+    out = {}
+    try:
+        p_card = LM.init_params(cfg, torch.Generator("cuda").manual_seed(1), torch.float32,
+                                "cuda")
+        _open_gates(torch, cfg, p_card)
+        p_host = map_leaves(lambda t: t.cpu(), p_card, is_leaf=torch.is_tensor)
+        for where, p in (("cuda", p_card), ("cpu", p_host)):
+            batch = {k: torch.from_numpy(v).to(where) for k, v in stub.items()}
+            with torch.no_grad():
+                fwd, _ = LM.forward(cfg, p, {**batch, "tokens": torch.from_numpy(toks).to(where)},
+                                    remat=False)
+            cache = LM.init_cache(cfg, p, 2, 16, batch, torch.float32)
+            logits = []
+            for step in range(3):
+                lg, cache = LM.decode_step(cfg, p, cache,
+                                           torch.from_numpy(toks[:, step]).to(where), step)
+                logits.append(lg)
+            # the real vocabulary's logits: the padding's are -1e30 on both
+            V = cfg.vocab_size
+            out[where] = (fwd[..., :V].float().cpu(), torch.stack(logits)[..., :V].float().cpu())
+            del cache, fwd, logits
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    errs = [float((a - b).abs().max()) for a, b in zip(out["cuda"], out["cpu"])]
+    scales = [float(b.abs().max()) for b in out["cpu"]]
+    info = {"card": card, "what": what, "layers": cfg.num_layers, "dtype": "float32",
+            "tf32": False, "batch": 2, "forward_tokens": 16, "decode_steps": 3,
+            "forward_max_abs_logit_diff": errs[0], "forward_max_abs_logit": scales[0],
+            "decode_max_abs_logit_diff": errs[1], "decode_max_abs_logit": scales[1],
+            "rtol": FAMILY_CPU_LOGIT_RTOL[cfg.family]}
+    log(json.dumps({f"{cfg.name}_card_against_cpu": info}))
+    for e, sc, part in zip(errs, scales, ("forward", "decode")):
+        check(e <= FAMILY_CPU_LOGIT_RTOL[cfg.family] * sc, f"{cfg.name} ({what}): card and "
+              f"CPU {part} logits differ by {e} (max |logit| {sc})")
+    del p_card, p_host, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def hybrid_phase(torch, card, profile_run) -> None:
+    """(w) The hybrid: zamba2-2.7b at its published widths and depth in bf16
+    through `ServeEngine` (no kernel of the port on its path: SSD and the
+    shared attention are plain torch ops); one profiled decode step; a
+    teacher-forced decode of 256 tokens against one forward through the
+    first group, float32; the card against the CPU at one group."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as LM
+    from repro_torch.models.params import leaves, map_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    live_before = torch.cuda.memory_allocated()
+    cfg = get_config(HYB_ARCH)
+    check(LM.num_params(cfg) == HYB_PARAMS,
+          f"{HYB_ARCH}: {LM.num_params(cfg)} parameters, expected {HYB_PARAMS}")
+    params, init_s = timed(torch, lambda: LM.init_params(
+        cfg, torch.Generator("cuda").manual_seed(0), torch.bfloat16, "cuda"))
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves(params, torch.is_tensor))
+    prompts = _prompts(cfg, LM_REQUESTS, np.random.default_rng(0))
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    eng, reqs, ticks, wall, steps = _serve(torch, cfg, params, prompts, LM_MAX_TOKENS,
+                                           torch.bfloat16)
+    launches = ops.launch_counts()
+    check(not any(launches.values()), f"{HYB_ARCH} server: a kernel launched ({launches})")
+    info = _serve_info(cfg, reqs, ticks, wall, steps, torch.cuda.max_memory_allocated(),
+                       live_before, card)
+    info.update(params=HYB_PARAMS, param_bytes=param_bytes, dtype="bfloat16", init_s=init_s,
+                launches=launches, chunk=cfg.ssm.chunk, groups=LM._n_groups(cfg))
+    log(json.dumps({"hybrid_serve": info}))
+    tok = torch.as_tensor(eng.tokens, device="cuda")
+    pos = torch.as_tensor(eng.slot_pos, device="cuda")
+    prof = profile_run(lambda: LM.decode_step(cfg, params, eng.cache, tok, pos),
+                       groups=TRAIN_KERNEL_GROUPS)
+    log(json.dumps({"hybrid_decode_step_profile": {"card": card, **prof}}))
+    del eng, tok, pos
+
+    # teacher-forced decode against one forward, float32, TF32 off: the
+    # served model's first group at its published widths (the bound), and
+    # the whole depth's forward at chunk 128 against chunk 64 (no bound)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        p32 = map_leaves(lambda t: t.float(), params, is_leaf=torch.is_tensor)
+        del params
+        toks = torch.from_numpy(np.random.default_rng(2).integers(
+            3, cfg.vocab_size, (1, HYB_TF_TOKENS)).astype(np.int32)).cuda()
+        with torch.no_grad():
+            deep = [LM.forward(c, p32, {"tokens": toks}, remat=False)[0]
+                    for c in (cfg, cfg.replace(ssm=dataclasses.replace(cfg.ssm, chunk=64)))]
+        deep_diff = float((deep[0] - deep[1]).abs().max())
+        deep_scale = float(deep[0].abs().max())
+        del deep
+        cfg1 = cfg.replace(num_layers=cfg.shared_attn_every)
+        p1 = dict(p32, groups=map_leaves(lambda t: t[:1], p32["groups"],
+                                         is_leaf=torch.is_tensor))
+        with torch.no_grad():
+            (fwd, _), fwd_s = timed(torch, lambda: LM.forward(cfg1, p1, {"tokens": toks},
+                                                              remat=False))
+        cache = LM.init_cache(cfg1, p1, 1, HYB_TF_TOKENS, None, torch.float32)
+        t0 = time.perf_counter()
+        err = 0.0
+        for i in range(HYB_TF_TOKENS):
+            lg, cache = LM.decode_step(cfg1, p1, cache, toks[:, i], i)
+            err = max(err, float((lg - fwd[:, i]).abs().max()))
+        dec_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    scale = float(fwd[..., :cfg.vocab_size].abs().max())
+    log(json.dumps({"hybrid_decode_against_forward": {
+        "card": card, "tokens": HYB_TF_TOKENS, "chunk": cfg.ssm.chunk,
+        "chunks": HYB_TF_TOKENS // cfg.ssm.chunk, "dtype": "float32", "tf32": False,
+        "layers": cfg1.num_layers, "forward_s": fwd_s, "decode_s": dec_s,
+        "max_abs_logit_diff": err, "max_abs_logit": scale, "rtol": HYB_TF_LOGIT_RTOL,
+        "full_depth_forward_chunk128_against_chunk64_max_abs_diff": deep_diff,
+        "full_depth_max_abs_logit": deep_scale}}))
+    check(err <= HYB_TF_LOGIT_RTOL * scale, f"{HYB_ARCH}: teacher-forced decode differs from "
+          f"the forward by {err} (max |logit| {scale})")
+    del p32, p1, cache, fwd, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"(w) {HYB_ARCH} at full size (bf16, {param_bytes} bytes of weights): {LM_REQUESTS} "
+        f"requests in {ticks} ticks, no request error, no kernel launched; decode step median "
+        f"{info['step_ms_median']:.3f} ms, p90 {info['step_ms_p90']:.3f} ms; "
+        f"{info['generated_tokens_per_s']:.1f} generated tokens/s; peak "
+        f"{info['peak_device_bytes']} bytes; teacher-forced decode of {HYB_TF_TOKENS} tokens "
+        f"through the first group within {err:.3g} of the forward (max |logit| {scale:.4g}, "
+        f"float32); at full depth the forward at chunk 64 differs from chunk 128 by "
+        f"{deep_diff:.3g} (max |logit| {deep_scale:.4g}) ({card})")
+    _card_against_cpu(torch, cfg.replace(num_layers=cfg.shared_attn_every), card,
+                      "one group: 6 Mamba2 layers and the shared block")
+
+
+def pipeline_phase(torch, card, record, record_hist, profile_run, results) -> None:
+    """(x) The feature-join pipeline feeding xlstm-125m: 10 steps of
+    `examples/ml_pipeline_torch.py`'s step (F ⋈ U ⋈ I by PHJ-OM on the
+    kernels, the partition_hash group-by, one float32 AdamW step), the
+    launch counters set to 0 just before; the joined features against a
+    numpy join; the same steps on the torch arms of the plan, the probe and
+    the gather, bit for bit; one step's join and group-by profiled; the
+    sLSTM and mLSTM layers alone; the four kernels' rows at the pipeline's
+    shapes (appended to `results`)."""
+    import functools
+    import gc
+    import importlib
+    import importlib.util
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import hash_join as hj
+    from repro_torch.core import primitives as prim
+    from repro_torch.data.pipeline import (FeatureJoinConfig, assemble_batch,
+                                           history_aggregates, make_dim_tables,
+                                           make_fact_batch)
+    from repro_torch.kernels import gather as kgather
+    from repro_torch.kernels import hash_probe as kprobe
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import radix_partition as krp
+    from repro_torch.models import model as LM
+    from repro_torch.models import xlstm as XL
+    from repro_torch.models.params import leaves
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+
+    # the module, not the `join` function that repro_torch.core exports
+    join_mod = importlib.import_module("repro_torch.core.join")
+    spec = importlib.util.spec_from_file_location("ml_pipeline_torch",
+                                                  ROOT / "examples" / "ml_pipeline_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    live_before = torch.cuda.memory_allocated()
+    mcfg = get_config("xlstm-125m")
+    check(LM.num_params(mcfg) == PIPE_PARAMS,
+          f"xlstm-125m: {LM.num_params(mcfg)} parameters, expected {PIPE_PARAMS}")
+    pcfg = FeatureJoinConfig(n_users=PIPE_USERS, n_items=PIPE_ITEMS, algorithm="phj",
+                             pattern="gftr", vocab=mcfg.vocab_size)
+    rows = PIPE_BATCH * PIPE_SEQ
+    (U, I), dims_s = timed(torch, lambda: make_dim_tables(pcfg, "cuda"))
+    facts = [make_fact_batch(pcfg, PIPE_BATCH, PIPE_SEQ, i, "cuda") for i in range(PIPE_STEPS)]
+    log(f"data: U {U!r}, I {I!r} ({dims_s:.3f} s); {PIPE_STEPS} fact batches of {rows} rows")
+
+    def run():
+        params = LM.init_params(mcfg, torch.Generator("cuda").manual_seed(0), torch.float32,
+                                "cuda")
+        opt = AdamW(lr=cosine_schedule(3e-3, 2, PIPE_STEPS), master_weights=False)
+        state = opt.init(params)
+        step = example.build_pipeline_step(pcfg, mcfg, U, I, opt, PIPE_BATCH, PIPE_SEQ)
+        rec = []
+        for fact in facts:
+            times = {}
+            torch.cuda.synchronize()
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, fact, times)
+            loss = float(m["loss"])
+            ms = (time.perf_counter() - t0) * 1e3
+            after = ops.launch_counts()
+            rec.append({"ms": ms, "parts_ms": {k: v * 1e3 for k, v in times.items()},
+                        "loss": loss, "grad_norm": float(m["grad_norm"]),
+                        "users": int(m["users"]), "tokens": m["tokens"].clone(),
+                        "launches": {k: after[k] - before[k] for k in after}})
+        return params, state, step, rec
+
+    # the main path: the kernel arms, counts set to 0 just before
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (params, state, step, rec_k), wall_k = timed(torch, run)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for i, r in enumerate(rec_k):
+        check(r["launches"] == PIPE_LAUNCHES, f"pipeline step {i}: launches {r['launches']}, "
+              f"expected {PIPE_LAUNCHES}")
+    check(launches == {k: PIPE_STEPS * v for k, v in PIPE_LAUNCHES.items()},
+          f"pipeline: launches {launches} over {PIPE_STEPS} steps")
+    losses = [r["loss"] for r in rec_k]
+    check(all(np.isfinite(losses)) and all(np.isfinite([r["grad_norm"] for r in rec_k])),
+          f"pipeline: a loss or grad norm is not finite ({losses})")
+    check(all(0 < r["users"] <= rows for r in rec_k), "pipeline: user counts out of range")
+    steady = rec_k[2:]
+
+    def med(key):
+        return float(np.median([r["parts_ms"][key] for r in steady]))
+
+    step_med = float(np.median([r["ms"] for r in steady]))
+    info = {"card": card, "arch": mcfg.name, "params": PIPE_PARAMS, "dtype": "float32",
+            "tf32": torch.backends.cuda.matmul.allow_tf32, "batch": PIPE_BATCH,
+            "seq": PIPE_SEQ, "fact_rows_per_step": rows, "n_users": PIPE_USERS,
+            "n_items": PIPE_ITEMS, "vocab": pcfg.vocab, "steps": PIPE_STEPS,
+            "step_ms": [r["ms"] for r in rec_k],
+            "parts_ms": [r["parts_ms"] for r in rec_k], "step_ms_median": step_med,
+            "step_ms_p90": float(np.percentile([r["ms"] for r in steady], 90)),
+            "join_ms_median": med("join"), "group_by_ms_median": med("group_by"),
+            "train_ms_median": med("train"), "steady_steps": len(steady),
+            "trained_tokens_per_s": rows * 1e3 / step_med, "peak_device_bytes": peak,
+            "peak_above_phase_start_bytes": peak - live_before, "run_wall_s": wall_k,
+            "losses": losses, "users": [r["users"] for r in rec_k], "launches": launches,
+            "launches_per_step": {k: v for k, v in PIPE_LAUNCHES.items() if v}}
+    log(json.dumps({"pipeline_train": info}))
+    final_k = [t.cpu() for t in leaves(params, torch.is_tensor)]
+
+    # the joined features against a numpy join, row for row; the tokens
+    # against numpy's float32 binning
+    Un = {c: U[c].cpu().numpy() for c in U.column_names}
+    In = {c: I[c].cpu().numpy() for c in I.column_names}
+    upos = np.empty(PIPE_USERS, np.int64)
+    upos[Un["uid"]] = np.arange(PIPE_USERS)
+    ipos = np.empty(PIPE_ITEMS, np.int64)
+    ipos[In["iid"]] = np.arange(PIPE_ITEMS)
+    for i in (0, PIPE_STEPS - 1):
+        fn = {c: facts[i][c].cpu().numpy() for c in facts[i].column_names}
+        lm_batch, joined, count = assemble_batch(pcfg, U, I, facts[i], PIPE_BATCH, PIPE_SEQ)
+        check(int(count) == rows, f"pipeline join {i}: {int(count)} rows, expected {rows}")
+        want = {"_fact_id": np.arange(rows, dtype=np.int32), "label": fn["label"]}
+        for j in range(pcfg.user_features):
+            want[f"uf{j}"] = Un[f"uf{j}"][upos[fn["fk_user"]]]
+        for j in range(pcfg.item_features):
+            want[f"if{j}"] = In[f"if{j}"][ipos[fn["fk_item"]]]
+        check(sorted(joined.column_names) == sorted(want),
+              f"pipeline join {i}: columns {joined.column_names}")
+        for c, v in want.items():
+            check(np.array_equal(joined[c].cpu().numpy(), v),
+                  f"pipeline join {i}: column {c} differs from numpy's join")
+        f = want["uf0"] + want["if0"]
+        tok = ((np.clip(f, np.float32(-3), np.float32(3)) + np.float32(3)) / np.float32(6)
+               * np.float32(pcfg.vocab - 2)).astype(np.int32) + 1
+        tok = tok.reshape(PIPE_BATCH, PIPE_SEQ)
+        tok = np.concatenate([tok, tok[:, :1]], axis=1)
+        check(np.array_equal(lm_batch["tokens"].cpu().numpy(), tok)
+              and torch.equal(lm_batch["tokens"], rec_k[i]["tokens"]),
+              f"pipeline step {i}: tokens differ from numpy's binning or from the step's")
+    del joined, lm_batch
+
+    # the same steps on the torch arms of the plan, the probe and the gather
+    del params, state
+    gc.collect()
+    real_phj = join_mod.phj_join
+    os.environ[ops.PARTITION_PLAN_ENV] = "torch"
+    join_mod.phj_join = functools.partial(hj.phj_join, probe_impl="torch", gather_impl="torch")
+    try:
+        ops.reset_launch_counts()
+        (params, state, _, rec_t), wall_t = timed(torch, run)
+        check(sum(ops.launch_counts().values()) == 0,
+              "pipeline: the torch arms launched a kernel")
+    finally:
+        join_mod.phj_join = real_phj
+        del os.environ[ops.PARTITION_PLAN_ENV]
+    check(all(torch.equal(a["tokens"], b["tokens"]) for a, b in zip(rec_k, rec_t)),
+          "pipeline: tokens differ between the kernel and torch arms")
+    check([r["loss"] for r in rec_t] == losses
+          and [r["grad_norm"] for r in rec_t] == [r["grad_norm"] for r in rec_k],
+          "pipeline: losses or grad norms differ between the kernel and torch arms")
+    check(all(torch.equal(a, b.cpu()) for a, b in zip(final_k, leaves(params, torch.is_tensor))),
+          "pipeline: final parameters differ between the kernel and torch arms")
+    log(f"(x) the feature-join pipeline: {PIPE_STEPS} steps of {rows} fact rows joined to "
+        f"{PIPE_USERS} users and {PIPE_ITEMS} items, xlstm-125m ({PIPE_PARAMS} parameters, "
+        f"float32) trained on the tokens: step median {step_med:.3f} ms (join "
+        f"{info['join_ms_median']:.3f}, group-by {info['group_by_ms_median']:.3f}, train "
+        f"{info['train_ms_median']:.3f}); {info['trained_tokens_per_s']:.1f} trained tokens/s; "
+        f"peak {peak} bytes; loss {losses[0]:.4f} -> {losses[-1]:.4f}; per step "
+        f"{PIPE_LAUNCHES['block_histograms']} block_histograms, "
+        f"{PIPE_LAUNCHES['partition_ranks']} partition_ranks, {PIPE_LAUNCHES['hash_probe']} "
+        f"hash_probe and {PIPE_LAUNCHES['clustered_gather']} clustered_gather launches; joins "
+        f"equal to numpy's; the torch arms' run equal bit for bit (tokens, losses, grad norms, "
+        f"final parameters; runs {wall_k:.3f} and {wall_t:.3f} s) ({card})")
+    del final_k, rec_t
+
+    # one step's join and group-by profiled (the kernel arms); the recurrent
+    # layers alone at the step's shape: one sLSTM layer's loop of 512 cell
+    # steps (timed and profiled), one chunked mLSTM layer (two chunks of
+    # 256). A whole train step is ~10^6 profiler events, whose reading
+    # takes minutes: the sLSTM layer stands for it.
+    join_prof = profile_run(lambda: (assemble_batch(pcfg, U, I, facts[0], PIPE_BATCH, PIPE_SEQ),
+                                     history_aggregates(pcfg, facts[0], num_groups=rows)),
+                            groups=TRAIN_KERNEL_GROUPS)
+    x = torch.randn((PIPE_BATCH, PIPE_SEQ, mcfg.d_model), device="cuda") * 0.5
+    pair0 = LM._layer(params["pairs"], 0)
+    with torch.no_grad():
+        slstm_ms = cuda_ms(torch, lambda: XL.apply_slstm(pair0["slstm"], x, mcfg.xlstm),
+                           reps=3, warmup=1)
+        mlstm_ms = cuda_ms(torch, lambda: XL.apply_mlstm(pair0["mlstm"], x, mcfg.xlstm),
+                           reps=3, warmup=1)
+        slstm_prof = profile_run(lambda: XL.apply_slstm(pair0["slstm"], x, mcfg.xlstm),
+                                 groups=TRAIN_KERNEL_GROUPS)
+    log(json.dumps({"pipeline_join_and_group_by_profile": {"card": card, **join_prof}}))
+    log(json.dumps({"pipeline_slstm_layer_profile": {
+        "card": card, **slstm_prof, "slstm_layer_forward_ms": slstm_ms,
+        "slstm_cell_steps_per_layer": PIPE_SEQ, "mlstm_layer_forward_ms": mlstm_ms,
+        "mlstm_chunks_per_layer": -(-PIPE_SEQ // XL.MLSTM_CHUNK),
+        "pairs": LM._n_pairs(mcfg)}}))
+    del params, state, step, x, pair0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the four kernels at the pipeline's shapes: the user join's plan pass
+    # over U's 4,194,304 keys (the top partition ranked as a tail class),
+    # its probe of 4,096 fact rows, and the gather of uf0 through id_r
+    p_bits = hj.choose_partition_bits(PIPE_USERS, hj.BUILD_BLOCK)
+    P = 1 << p_bits
+    dig_r = hj._digits(U["uid"], p_bits, True)
+    pd = torch.where(dig_r == P, 256, dig_r & 255).contiguous()
+    shape = f"257 bins: the pipeline's user-join plan, first pass over U's {PIPE_USERS} keys"
+    record_hist(pd, 257, shape, launches=launches["block_histograms"])
+    base = krp.tile_base(krp.block_histograms(pd, 257))[0]
+    record("partition_ranks", [krp.rank_with_base(pd, base, 257)],
+           [ref.partition_ranks(pd, 257)], lambda: krp.rank_with_base(pd, base, 257),
+           lambda: ref.partition_ranks(pd, 257), lambda: torch.sort(pd, stable=True),
+           4 * pd.shape[0] + 4 * base.numel() + 4 * pd.shape[0], shape=shape,
+           launches=launches["partition_ranks"])
+    fk = facts[0]["fk_user"]
+    dig_s = hj._digits(fk, p_bits, True)
+    perm_r, off_r, sz_r = prim.plan_partition_permutation(dig_r, P + 1)
+    perm_s, off_s, sz_s = prim.plan_partition_permutation(dig_s, P + 1)
+    kr, ks = U["uid"][perm_r], fk[perm_s]
+    probe_args = tuple(t.contiguous() for t in (kr, off_r[:P], sz_r[:P], ks, off_s[:P],
+                                                sz_s[:P])) + (hj.BUILD_BLOCK,)
+    vid, hit = kprobe.hash_probe(*probe_args)
+    check(int(hit.sum()) == rows, "the pipeline's probe missed a row of a 100%-match join")
+    # bytes the data needs: each probe key read and its vid and hit written,
+    # the build keys of the partitions the probe rows fall in, and both
+    # sides' offsets and sizes for those partitions; operations: one lookup
+    # per probe row and one insert per build key read
+    probed = torch.unique(dig_s)
+    live_build = int(sz_r[probed].clamp(max=hj.BUILD_BLOCK).sum())
+    probe_bytes = 4 * rows + (4 + 1) * rows + 4 * live_build + 4 * 4 * probed.numel()
+    record("hash_probe", [vid, hit], list(ref.hash_probe(*probe_args)),
+           lambda: kprobe.hash_probe(*probe_args), lambda: ref.hash_probe(*probe_args), None,
+           probe_bytes, live_build + rows, plain_reps=3,
+           shape=f"{rows} fact rows against {PIPE_USERS} users in {P} partitions",
+           launches=launches["hash_probe"])
+    vid_s = torch.arange(rows, dtype=torch.int32, device="cuda")
+    (_, vr, _), c = prim.compact(hit, [ks, vid, vid_s], rows, fill=-1)
+    id_r = torch.where(torch.arange(rows, device="cuda") < c, vr, -1)
+    src = U["uf0"][perm_r]
+    idx_long = id_r.clamp(min=0).long()
+    record("clustered_gather", [kgather.clustered_gather(src, id_r)],
+           [ref.clustered_gather(src, id_r)], lambda: kgather.clustered_gather(src, id_r),
+           lambda: ref.clustered_gather(src, id_r), lambda: torch.take(src, idx_long),
+           rows * (4 + 4 + 4),
+           shape=f"uf0 through id_r: {rows} rows from U's {PIPE_USERS} partitioned rows",
+           launches=launches["clustered_gather"])
+    for row in results[-4:]:
+        row["launches_per_pipeline_step"] = PIPE_LAUNCHES[row["name"]]
+    del U, I, facts, pd, base, kr, ks, vid, hit, src, id_r, idx_long
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_phase(torch, card, profile_run) -> None:
+    """(y) The vision and audio families served in bf16 as (u) serves, with
+    8 requests: llama-3.2-vision-11b at its published widths cut to 10
+    layers (two cross groups, the cross K/V of 1,601 stub patches computed
+    in `init_cache`), whisper-large-v3 at its published widths and depth
+    (the encoder over 1,500 stub frames in `init_cache`); one profiled
+    decode step each; each on the card against the CPU at one group or one
+    layer a stack."""
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as LM
+    from repro_torch.models.params import leaves
+
+    cells = ((get_config(VIS_ARCH).replace(num_layers=VIS_LAYERS), VIS_PARAMS,
+              "one group: 4 self-attention layers and the cross layer"),
+             (get_config(AUD_ARCH), AUD_PARAMS, "one encoder and one decoder layer"))
+    for cfg, n_params, cut in cells:
+        gc.collect()
+        torch.cuda.empty_cache()
+        live_before = torch.cuda.memory_allocated()
+        check(LM.num_params(cfg) == n_params,
+              f"{cfg.name}: {LM.num_params(cfg)} parameters, expected {n_params}")
+        params, init_s = timed(torch, lambda: LM.init_params(
+            cfg, torch.Generator("cuda").manual_seed(0), torch.bfloat16, "cuda"))
+        _open_gates(torch, cfg, params)
+        param_bytes = sum(t.numel() * t.element_size()
+                          for t in leaves(params, torch.is_tensor))
+        # the stub embeddings first, then the prompts, as the launchers draw them
+        rng = np.random.default_rng(0)
+        stub = {k: torch.from_numpy(v).cuda() for k, v in _stub_np(cfg, LM_BATCH, rng).items()}
+        prompts = _prompts(cfg, FAMILY_REQUESTS, rng)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        (eng, reqs, ticks, wall, steps), serve_s = timed(
+            torch, lambda: _serve(torch, cfg, params, prompts, LM_MAX_TOKENS, torch.bfloat16,
+                                  stub))
+        launches = ops.launch_counts()
+        check(not any(launches.values()), f"{cfg.name} server: a kernel launched ({launches})")
+        info = _serve_info(cfg, reqs, ticks, wall, steps, torch.cuda.max_memory_allocated(),
+                           live_before, card)
+        info.update(params=n_params, param_bytes=param_bytes, dtype="bfloat16",
+                    init_s=init_s, engine_and_serve_s=serve_s,
+                    stub_tokens=next(iter(stub.values())).shape[1], launches=launches)
+        log(json.dumps({f"{cfg.family}_serve": info}))
+        tok = torch.as_tensor(eng.tokens, device="cuda")
+        pos = torch.as_tensor(eng.slot_pos, device="cuda")
+        prof = profile_run(lambda: LM.decode_step(cfg, params, eng.cache, tok, pos),
+                           groups=TRAIN_KERNEL_GROUPS)
+        log(json.dumps({f"{cfg.family}_decode_step_profile": {"card": card, **prof}}))
+        log(f"(y) {cfg.name} at {cfg.num_layers} layers (bf16, {param_bytes} bytes of "
+            f"weights): {FAMILY_REQUESTS} requests in {ticks} ticks, no request error, no "
+            f"kernel launched; decode step median {info['step_ms_median']:.3f} ms, p90 "
+            f"{info['step_ms_p90']:.3f} ms; {info['generated_tokens_per_s']:.1f} generated "
+            f"tokens/s; peak {info['peak_device_bytes']} bytes ({card})")
+        del params, eng, tok, pos, stub
+        gc.collect()
+        torch.cuda.empty_cache()
+        one = (cfg.replace(num_layers=cfg.cross_attn_every) if cfg.family == "vlm"
+               else cfg.replace(num_layers=1, encoder_layers=1))
+        _card_against_cpu(torch, one, card, cut)
 
 
 def main() -> None:
@@ -2243,6 +2875,15 @@ def main() -> None:
 
     train_phase(torch, card, record, record_hist, profile_run, results)
     clock.done("10v LM trainer")
+
+    hybrid_phase(torch, card, profile_run)
+    clock.done("11w hybrid server")
+
+    pipeline_phase(torch, card, record, record_hist, profile_run, results)
+    clock.done("12x feature-join pipeline")
+
+    family_phase(torch, card, profile_run)
+    clock.done("13y vision and audio servers")
 
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,7 @@
 
 Runs on the card by default (--device cpu without one); reduced configs
 unless --full. Checkpoints to --ckpt-dir and resumes automatically if
-re-run. The dense and MoE families train."""
+re-run. Every family trains."""
 import sys
 
 from repro_torch.launch.train import main

@@ -11,10 +11,12 @@ kernels that stand for the reference's Pallas kernels (`kernels`); the
 cost-based query engine: logical plans, statistics, the optimizer and its
 physical plans, the executor and the memory budget (`engine`); the
 escalation runtime and fault injection (`resilience`), the metrics
-registry, residuals and the calibration store (`obs`), and the relational
-workload generator (`data`); and the first slice of the LM stack: the
-architecture configs (`configs`), the dense and MoE models whose token
-routing runs on the radix-partition kernels (`models`), the sharding rule
-tables (`dist`), the continuous-batching decode server (`serve.engine`) and
-its launcher (`launch.serve`).
+registry, residuals and the calibration store (`obs`), the relational
+workload generator and the feature-join pipeline that feeds LM training
+with PHJ-joined, tokenized features (`data`); and the LM stack: the
+architecture configs (`configs`), the models of every family — dense, MoE
+(whose token routing runs on the radix-partition kernels), xLSTM, the
+zamba2 hybrid, vision and audio (`models`) — the sharding rule tables
+(`dist`), the continuous-batching decode server (`serve.engine`), the
+trainer (`train`) and the two launchers (`launch`).
 """

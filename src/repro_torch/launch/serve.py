@@ -6,8 +6,11 @@ widths and depth).
         [--max-tokens 16] [--max-batch 4] [--full] [--seed 0] [--device cuda]
 
 The parameters are float32, drawn from `torch.Generator(device)` seeded
-with --seed. --device defaults to the card; without one the launcher exits 1
-unless given --device cpu. Only the dense and MoE families decode so far.
+with --seed. The vision and audio families get stub embeddings (patches or
+audio frames) drawn from numpy's seed --seed before the prompts, as the JAX
+package's launcher draws them, so that both launchers serve the same
+prompts. --device defaults to the card; without one the launcher exits 1
+unless given --device cpu.
 """
 from __future__ import annotations
 
@@ -41,7 +44,16 @@ def main(argv=None):
     params = M.init_params(cfg, torch.Generator(device).manual_seed(args.seed),
                            torch.float32, device)
     rng = np.random.default_rng(args.seed)
-    eng = ServeEngine(cfg, params, max_batch=args.max_batch, max_len=128)
+    stub = {}
+    if cfg.family == "vlm":
+        stub["vision_emb"] = torch.tensor(
+            rng.normal(size=(args.max_batch, cfg.vision_tokens, cfg.d_model)) * 0.02,
+            dtype=torch.float32, device=device)
+    if cfg.family == "audio":
+        stub["enc_emb"] = torch.tensor(
+            rng.normal(size=(args.max_batch, cfg.encoder_len, cfg.d_model)) * 0.02,
+            dtype=torch.float32, device=device)
+    eng = ServeEngine(cfg, params, max_batch=args.max_batch, max_len=128, batch_stub=stub)
     for r in range(args.requests):
         prompt = rng.integers(3, cfg.vocab_size, size=rng.integers(2, 8)).tolist()
         eng.submit(Request(rid=r, prompt=prompt, max_tokens=args.max_tokens))

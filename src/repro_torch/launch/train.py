@@ -9,9 +9,9 @@ Wires together the config registry, the one-card train step (float32
 parameters and AdamW moments, each layer recomputed in the backward), the
 deterministic data stream, and the loop with checkpoint/resume and
 straggler logging. The parameters are drawn from `torch.Generator(device)`
-seeded with --seed. --device defaults to the card; without one the launcher
-exits 1 unless given --device cpu. Only the dense and MoE families train so
-far.
+seeded with --seed; the vision and audio families' batches carry stub
+patch or frame embeddings. --device defaults to the card; without one the
+launcher exits 1 unless given --device cpu.
 """
 from __future__ import annotations
 

@@ -38,6 +38,13 @@ def norm_tmpl(kind: str, d: int):
     raise ValueError(kind)
 
 
+def rms(x, eps: float = 1e-5):
+    """RMS normalization without a scale, taken in float32 and returned in
+    x's dtype (the xLSTM and Mamba2 blocks' inner norms)."""
+    xf = x.float()
+    return (xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)).to(x.dtype)
+
+
 def apply_norm(kind: str, p, x, eps: float = 1e-5):
     xf = x.float()
     if kind == "rmsnorm":
@@ -280,8 +287,8 @@ def head_tmpl(d: int, v: int):
     return {"w": P((d, v), ("embed", "vocab"))}
 
 
-def sinusoidal_positions(max_len: int, d: int):
-    return sinusoidal_at(torch.arange(max_len), d)
+def sinusoidal_positions(max_len: int, d: int, device=None):
+    return sinusoidal_at(torch.arange(max_len, device=device), d)
 
 
 def sinusoidal_at(positions: torch.Tensor, d: int):

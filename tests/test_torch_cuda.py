@@ -1418,3 +1418,136 @@ def test_train_step_on_card_equals_cpu(dev):
         assert a.is_cuda
         err = float((a.cpu() - b).abs().max())
         assert err <= 1e-5 * float(b.abs().max()) + 2e-3, err
+
+
+# ---------------------------------------------------------------------------
+# the hybrid, xLSTM, vision and audio families; the feature-join pipeline
+# ---------------------------------------------------------------------------
+def _family_batch(cfg, dev, b=2, s=16, seed=0):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["vision_emb"] = (rng.normal(size=(b, cfg.vision_tokens, cfg.d_model))
+                               * 0.02).astype(np.float32)
+    if cfg.family == "audio":
+        batch["enc_emb"] = (rng.normal(size=(b, cfg.encoder_len, cfg.d_model))
+                            * 0.02).astype(np.float32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-125m", "llama-3.2-vision-11b",
+                                  "whisper-large-v3"])
+def test_family_on_card_equals_cpu(dev, arch):
+    """The reduced config in float32, TF32 off, on the card and on the CPU
+    from the same weights: loss within 1e-5 relative, every gradient leaf
+    within 1e-3 of its leaf's max |g| (the random weights saturate the
+    attention softmax, which amplifies the two devices' rounding: zamba2's
+    shared block, used twice, gave 1.1e-4), 4 decode steps' logits within
+    1e-4 of max(1, max |logit|)."""
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves, map_leaves
+
+    cfg = get_reduced_config(arch)
+    p_card = M.init_params(cfg, torch.Generator(dev).manual_seed(0), torch.float32, dev)
+    if cfg.family == "vlm":  # let the cross layers reach the logits
+        p_card["groups"]["cross"]["gate_attn"].fill_(1.0)
+        p_card["groups"]["cross"]["gate_mlp"].fill_(1.0)
+    p_host = map_leaves(lambda t: t.cpu(), p_card, is_leaf=torch.is_tensor)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for where, p in ((dev, p_card), ("cpu", p_host)):
+            batch = _family_batch(cfg, where)
+            ps = [t.detach().requires_grad_() for t in leaves(p, torch.is_tensor)]
+            it = iter(ps)
+            tree = map_leaves(lambda _: next(it), p, is_leaf=torch.is_tensor)
+            loss, _ = M.loss_fn(cfg, tree, batch)
+            grads = torch.autograd.grad(loss, ps, allow_unused=True, materialize_grads=True)
+            stub = {k: v for k, v in batch.items() if k != "tokens"}
+            cache = M.init_cache(cfg, p, 2, 16, stub, torch.float32)
+            logits = []
+            for step in range(4):
+                lg, cache = M.decode_step(cfg, p, cache, batch["tokens"][:, step], step)
+                logits.append(lg.cpu())
+            out[str(where)] = (float(loss.detach()), [g.cpu() for g in grads],
+                               torch.stack(logits))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    card, host = out[str(dev)], out["cpu"]
+    np.testing.assert_allclose(card[0], host[0], rtol=1e-5)
+    for a, b in zip(card[1], host[1]):
+        assert float((a - b).abs().max()) <= 1e-3 * max(float(b.abs().max()), 1e-30)
+    assert float((card[2] - host[2]).abs().max()) <= 1e-4 * max(1.0, float(host[2].abs().max()))
+
+
+def test_pipeline_on_card_equals_cpu_and_launches_its_kernels(dev):
+    """The default pipeline tables (4,096 users, 8,192 items) and a batch of
+    2 x 64 events: the tokens and every joined column on the card equal the
+    CPU's; each assemble_batch plans each side of its two joins in one pass
+    (2^6 + 1 and 2^7 + 1 partitions), probes twice and gathers 3 + 1 and
+    3 + 4 payload columns."""
+    from repro_torch.data.pipeline import (FeatureJoinConfig, assemble_batch,
+                                           history_aggregates, make_dim_tables,
+                                           make_fact_batch)
+
+    cfg = FeatureJoinConfig()
+    out = {}
+    for where in (dev, "cpu"):
+        U, I = make_dim_tables(cfg, where)
+        fact = make_fact_batch(cfg, 2, 64, 0, where)
+        before = ops.launch_counts()
+        batch, joined, count = assemble_batch(cfg, U, I, fact, 2, 64)
+        after = ops.launch_counts()
+        G, users = history_aggregates(cfg, fact, num_groups=128)
+        out[str(where)] = (batch, joined, int(count), G, int(users),
+                           {k: after[k] - before[k] for k in after})
+    card, host = out[str(dev)], out["cpu"]
+    assert torch.equal(card[0]["tokens"].cpu(), host[0]["tokens"])
+    assert card[1].column_names == host[1].column_names
+    for c in host[1].column_names:
+        assert torch.equal(card[1][c].cpu(), host[1][c]), c
+    assert card[2] == host[2] == 128 and card[4] == host[4]
+    n = host[4]
+    assert torch.equal(card[3]["k"][:n].cpu(), host[3]["k"][:n])
+    torch.testing.assert_close(card[3]["label_mean"][:n].cpu(), host[3]["label_mean"][:n],
+                               rtol=1e-6, atol=0)
+    assert card[5] == dict.fromkeys(card[5], 0) | {"block_histograms": 4, "partition_ranks": 4,
+                                                   "hash_probe": 2, "clustered_gather": 11}
+    assert not any(host[5].values())
+
+
+def test_pipeline_steps_on_card_repeat_bit_for_bit(dev):
+    """Three steps of examples/ml_pipeline_torch.py's step (the reduced
+    xlstm-125m) twice from the same weights: the same tokens, losses and
+    final parameters, bit for bit."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.data.pipeline import FeatureJoinConfig, make_dim_tables, make_fact_batch
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves
+    from repro_torch.train.optimizer import AdamW
+
+    path = Path(__file__).resolve().parent.parent / "examples" / "ml_pipeline_torch.py"
+    spec = importlib.util.spec_from_file_location("ml_pipeline_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    pcfg = FeatureJoinConfig()
+    mcfg = get_reduced_config("xlstm-125m").replace(vocab_size=pcfg.vocab)
+    U, I = make_dim_tables(pcfg, dev)
+    runs = []
+    for _ in range(2):
+        params = M.init_params(mcfg, torch.Generator(dev).manual_seed(0), torch.float32, dev)
+        opt = AdamW(lr=1e-3)
+        state = opt.init(params)
+        step = example.build_pipeline_step(pcfg, mcfg, U, I, opt, 2, 300)
+        rec = []
+        for i in range(3):
+            params, state, m = step(params, state, make_fact_batch(pcfg, 2, 300, i, dev))
+            rec.append((m["tokens"].cpu(), float(m["loss"])))
+        runs.append((rec, [t.cpu() for t in leaves(params, torch.is_tensor)]))
+    assert all(torch.equal(a[0], b[0]) and a[1] == b[1] for a, b in zip(runs[0][0], runs[1][0]))
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))

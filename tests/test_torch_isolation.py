@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: neither the package nor chip_smoke.py
-imports JAX or the JAX package."""
+"""The PyTorch port stands alone: neither the package, nor its examples
+(examples/*_torch.py), nor chip_smoke.py imports JAX or the JAX package."""
 import ast
 import os
 import subprocess
@@ -58,6 +58,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "import repro_torch.train, repro_torch.train.optimizer, repro_torch.train.step\n"
             "import repro_torch.train.checkpoint, repro_torch.train.loop\n"
             "import repro_torch.launch.train\n"
+            "import repro_torch.models.ssm, repro_torch.models.xlstm\n"
+            "import repro_torch.data.pipeline\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -66,7 +68,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert out.stdout.strip() == "[]", out.stdout
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+                         + sorted((REPO / "examples").glob("*_torch.py")),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_sources_import_no_jax_and_no_reference(path):
     bad = [m for m in _imports(path) if _forbidden(m)]

@@ -35,8 +35,6 @@ from repro_torch.models.params import params_from_numpy
 
 ARCHS = jbase.list_archs()
 DECODERS = [a for a in ARCHS if jbase.get_config(a).family in ("dense", "moe")]
-TEMPLATED = [a for a in ARCHS if jbase.get_config(a).family in ("dense", "moe", "vlm", "audio")]
-UNPORTED = [a for a in ARCHS if a not in TEMPLATED]
 OUT_TOL = 1e-4
 
 
@@ -110,21 +108,18 @@ def test_registry_and_shapes_equal_reference():
 def test_num_params_equal_reference(arch):
     for get in ("get_config", "get_reduced_config"):
         cfg = getattr(tbase, get)(arch)
-        if arch in UNPORTED:
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-                TM.num_params(cfg)
-        else:
-            assert TM.num_params(cfg) == JM.num_params(getattr(jbase, get)(arch))
+        assert TM.num_params(cfg) == JM.num_params(getattr(jbase, get)(arch))
 
 
 def test_param_counts_match_public_sizes():
     expected = {
+        "xlstm-125m": (0.10, 0.17), "zamba2-2.7b": (2.2, 2.9),
         "qwen2-moe-a2.7b": (13.5, 15.0), "mixtral-8x7b": (45.5, 47.5),
         "olmo-1b": (1.0, 1.4), "granite-8b": (7.7, 8.6),
         "starcoder2-7b": (6.9, 7.8), "h2o-danube-3-4b": (3.5, 4.3),
         "llama-3.2-vision-11b": (9.0, 11.5), "whisper-large-v3": (1.3, 1.8),
     }
-    assert sorted(expected) == sorted(TEMPLATED)
+    assert sorted(expected) == sorted(ARCHS)
     for arch, (lo, hi) in expected.items():
         n = TM.num_params(tbase.get_config(arch)) / 1e9
         assert lo <= n <= hi, (arch, n)
@@ -136,7 +131,7 @@ def _shapes(tree):
             for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-@pytest.mark.parametrize("arch", TEMPLATED)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_param_tree_equals_reference(arch):
     """Keys and shapes of the initialized tree equal the JAX package's; the
     draws follow the template's init kinds and scales."""

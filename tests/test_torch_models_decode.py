@@ -1,5 +1,6 @@
 """The port's dense and MoE models end to end against the JAX package's, on
-the CPU: prefill logits, decode steps and KV caches of the six dense and MoE
+the CPU (tests/test_torch_models_families_decode.py holds the other
+families): prefill logits, decode steps and KV caches of the six dense and MoE
 archs (reduced configs, float32) on the JAX package's own weights, with the
 tolerances of tests/test_torch_models.py (its helpers are shared)."""
 from __future__ import annotations
@@ -17,7 +18,7 @@ from repro.kernels import ops as jops
 from repro.models import model as JM
 from repro_torch.configs import base as tbase
 from repro_torch.models import model as TM
-from test_torch_models import DECODERS, UNPORTED, close, t, weights
+from test_torch_models import DECODERS, close, t, weights
 
 
 @pytest.fixture(autouse=True)
@@ -103,12 +104,3 @@ def test_sliding_window_decode_past_the_window_equals_reference():
         tlog, tc = TM.decode_step(cfg_t, tp, tc, t(tok[:, step]), t(pos))
         close(tlog, jlog, what=f"step {step}")
     close(tc["kv"]["k"], jc["kv"]["k"])
-
-
-@pytest.mark.parametrize("arch", UNPORTED + ["llama-3.2-vision-11b", "whisper-large-v3"])
-def test_families_without_a_port_raise(arch):
-    cfg = tbase.get_reduced_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        TM.init_cache(cfg, {"embed": {"table": torch.zeros(1)}}, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        TM.forward(cfg, {}, {"tokens": torch.zeros((1, 2), dtype=torch.int32)})
