@@ -204,6 +204,22 @@
    (or one layer a stack) in float32 on the card against the CPU as in
    (w), logits within 1e-2 of their largest magnitude (the random model's
    saturated softmax, FAMILY_CPU_LOGIT_RTOL).
+14. (z) The launch-configuration lint on the card
+   (`repro_torch.analysis.kernel_lint`): every registered shape's declared
+   launch (threads, dynamic shared memory, grid) equals what the kernel's
+   library says its launch would use (`<name>_launch_config`, the launch's
+   own host helper), and every compiled instance of the eight kernels fits
+   the H100 (threads, shared memory, registers) and spills no more than
+   `DECLARED_SPILLS` allows it (nothing, for an instance it does not name);
+   one line per instance with its threads, dynamic shared memory at J2's
+   shape, registers, spills (and the declared ones) and static shared
+   memory. Then both example twins,
+   `examples/quickstart_torch.py` and `relational_analytics_torch.py`, as
+   subprocesses with `--device cuda` and with `--device cpu` (the cost
+   model's profile one for both, from a calibration store of the phase's
+   own): each exits 0, the card's run launches the join kernels and the
+   CPU's none, and both print the same lines with the same integers (the
+   quickstart's float32 revenue within sqrt(rows) x 2^-24 relative).
 Every phase prints its seconds; the card's name and power limit stand in
 the JSON line of every new number.
 
@@ -1450,6 +1466,116 @@ def pipeline_phase(torch, card, record, record_hist, profile_run, results) -> No
     del U, I, facts, pd, base, kr, ks, vid, hit, src, id_r, idx_long
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# runs an example with the launch counters read at its end (to stderr, so
+# that its standard output is the example's own)
+EXAMPLE_RUNNER = ("import json, runpy, sys\n"
+                  "sys.argv = sys.argv[1:]\n"
+                  "from repro_torch.kernels import ops\n"
+                  "ops.reset_launch_counts()\n"
+                  "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+                  "print(json.dumps({'launches': ops.launch_counts()}), file=sys.stderr)\n")
+# the quickstart's total revenue (3,024,381, printed to the unit): a float32
+# sum of 30,000 products, taken in another order on each device. Held at the
+# random-walk size of 30,000 roundings, sqrt(30,000) x 2^-24 (1.03e-5, 31 of
+# the total): one row lost or doubled (a product is 101 on average) moves it
+# past that, where the worst-case 2 x 30,000 x 2^-24 (3.6e-3) let a hundred
+# rows through. The card and the CPU printed the same total.
+QUICKSTART_REVENUE_RTOL = 30_000 ** 0.5 * F32_ULP
+
+
+def same_printed_numbers(want: list, got: list, rtol_lines=()) -> str | None:
+    """None when two runs printed the same lines: the same text, the same
+    integers, decimals within their printed digits, and the numbers of the
+    lines starting with one of `rtol_lines` ({prefix: rtol}) within rtol
+    relative; else what differs."""
+    import re
+
+    number = re.compile(r"-?\d+(?:\.\d+)?")
+    if len(want) != len(got):
+        return f"{len(got)} lines against {len(want)}"
+    for w, g in zip(want, got):
+        wn, gn = number.findall(w), number.findall(g)
+        if number.sub("#", w) != number.sub("#", g) or len(wn) != len(gn):
+            return f"{g!r} against {w!r}"
+        rtol = next((t for p, t in dict(rtol_lines).items() if w.startswith(p)), None)
+        for a, b in zip(wn, gn):
+            if a == b:
+                continue
+            if rtol is not None:
+                ok = abs(float(a) - float(b)) <= rtol * abs(float(a))
+            else:
+                ok = "." in a and abs(float(a) - float(b)) <= 10.0 ** -len(a.split(".")[1])
+            if not ok:
+                return f"{g!r} against {w!r}"
+    return None
+
+
+def lint_phase(torch, card) -> None:
+    """(z) The launch-configuration lint on the card and the two example
+    twins (see the module docstring)."""
+    from repro_torch.analysis import kernel_lint as kl
+    from repro_torch.core.planner import PrimitiveProfile
+    from repro_torch.obs.calibration import CalibrationStore, backend_fingerprint
+
+    t0 = time.perf_counter()
+    reports = kl.lint_production_kernels("cuda")
+    launched = [r for r in reports if r.launched]
+    check({r.instance for r in launched} == {i for k in kl.KERNELS for i in kl.INSTANCES[k]},
+          "(z) the registered shapes miss a kernel instance")
+    check(all(r.c_config is not None and r.registers is not None for r in launched),
+          "(z) a launch was not held against the C side and the compiled instance")
+    bad = [f"{r.name}: {type(v).__name__}: {v}" for r in reports for v in r.violations]
+    check(not bad, f"(z) the launch-configuration lint: {len(bad)} violation(s): {bad[:8]}")
+    table = kl.instance_table(reports)
+    for row in table:
+        log(f"(z) {row['instance']}: {row['threads']} threads, {row['dynamic_smem']} B of "
+            f"dynamic shared memory at {row['shape']!r}, {row['registers']} registers, "
+            f"{row['spill_bytes']} B spills ({row['declared_spill_bytes']} B declared), "
+            f"{row['static_smem']} B of static shared memory")
+    sources = {r.kernel: r.atomics for r in reports if r.instance == "source"}
+    log(json.dumps({"kernel_launch_lint": {
+        "card": card, "shapes": len(reports) - len(sources), "launches_held": len(launched),
+        "violations": 0, "atomics_by_source": sources, "instances": table,
+        "seconds": time.perf_counter() - t0}}))
+    log(f"(z) lint: {len(launched)} launches at {len(kl.production_kernel_specs())} registered "
+        f"shapes equal the C side's, {len(table)} instances fit, "
+        f"{sum(bool(r['spill_bytes']) for r in table)} spill as declared and the rest not at all, "
+        f"{sum(sources.values())} atomics of {len(sources)} sources declared ({card})")
+
+    # the example twins, on the card and on the CPU, priced by one profile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        store = CalibrationStore(os.path.join(tmp, "CALIBRATION.json"))
+        for device in ("cuda", "cpu"):
+            store.put_profile(backend_fingerprint(device), 1 << 16, PrimitiveProfile())
+        store.save()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_CALIBRATION_PATH=store.path)
+        for script, rtol in (("quickstart_torch.py", {"group-by:": QUICKSTART_REVENUE_RTOL}),
+                             ("relational_analytics_torch.py", {})):
+            runs = {}
+            for device in ("cuda", "cpu"):
+                t1 = time.perf_counter()
+                p = subprocess.run([sys.executable, "-c", EXAMPLE_RUNNER,
+                                    str(ROOT / "examples" / script), "--device", device],
+                                   capture_output=True, text=True, env=env, cwd=tmp,
+                                   timeout=300)
+                check(p.returncode == 0, f"(z) {script} --device {device} exited "
+                      f"{p.returncode}:\n{p.stderr[-3000:]}")
+                launches = json.loads(p.stderr.strip().splitlines()[-1])["launches"]
+                runs[device] = (p.stdout.splitlines(), launches, time.perf_counter() - t1)
+            out_card, launches, wall = runs["cuda"]
+            check(launches["hash_probe"] > 0 and launches["block_histograms"] > 0
+                  and launches["partition_ranks"] > 0,
+                  f"(z) {script} on the card launched no join kernel ({launches})")
+            check(not any(runs["cpu"][1].values()),
+                  f"(z) {script} on the CPU launched kernels ({runs['cpu'][1]})")
+            diff = same_printed_numbers(runs["cpu"][0], out_card, rtol)
+            check(diff is None, f"(z) {script}: the card's lines differ from the CPU's: {diff}")
+            log(f"(z) {script} --device cuda: exit 0, {len(out_card)} lines, the same "
+                f"integers as --device cpu ({wall:.3f} s against {runs['cpu'][2]:.3f} s); "
+                f"launches {launches}")
+            log("\n".join(f"    | {line}" for line in out_card))
 
 
 def family_phase(torch, card, profile_run) -> None:
@@ -2884,6 +3010,9 @@ def main() -> None:
 
     family_phase(torch, card, profile_run)
     clock.done("13y vision and audio servers")
+
+    lint_phase(torch, card)
+    clock.done("14z launch-configuration lint and example twins")
 
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

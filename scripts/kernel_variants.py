@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Times design variants of the port's probe, per-tile histogram and
-segmented-sum kernels against the kept sources, on one NVIDIA GPU, at J2's
-shapes.
+"""Times design variants of the port's probe, fused probe-aggregate, lower
+bound, per-tile histogram and segmented-sum kernels against the kept
+sources, on one NVIDIA GPU, at J2's shapes.
 
     python3 scripts/kernel_variants.py [--rounds 21] [--kernel segsum_partials]
 
 Each variant is the kept source (`src/repro_torch/csrc/hash_probe.cu`,
-`block_histograms.cu` or `segsum_partials.cu`) with one named text edit
+`probe_agg.cu`, `lower_bound.cu`, `block_histograms.cu` or
+`segsum_partials.cu`) with one named text edit
 (`VARIANTS`), written to
 `build/kernel_variants/`, built with the port's nvcc flags and loaded with
 ctypes beside the kept kernel. Variants that change the output say so
 (`exact=False`): they take a part of the kernel away to show what that part
 costs. The script makes J2's partitioned key columns (TPC-H Q18 at scale 1,
-seed 0: 15M build and 60M probe keys, 2^18 partitions) and the digits of
-the probe side's plan passes (256, 257 and 8 bins), and the sort_pallas
+seed 0: 15M build and 60M probe keys, 2^18 partitions), the group-join's
+padded layout of them (sub-blocks of 256 rows, group key k as int32 and
+as int64, s1 from the probe side and r1 from the build side), both sides'
+sorted keys as int64 (shifted past 32 bits), the digits of the probe side's
+plan passes (256, 257 and 8 bins), and the sort_pallas
 group-by's s1 pass (the probe side's 60M keys sorted, their s1 as float32,
 and the same rows with every key equal: the serial-add worst case), then
 times every variant of a kernel once a round, in an order that turns each
@@ -87,6 +91,14 @@ VARIANTS = {
         (_PROBE_STORES, "        if (slot == 123456789) hit[j] = 1;\n")]),
     "walk only, 8 rows a thread": ("hash_probe", False, _PROBE_NO_TABLE + [
         ("constexpr int UNROLL = 4;", "constexpr int UNROLL = 8;")]),
+    "probe_agg": ("probe_agg", True, []),
+    "probe_agg int32 keys at 6 blocks an SM (40 registers: no spill)": ("probe_agg", True, [
+        ("NARROW_BLOCKS_4 = 8,", "NARROW_BLOCKS_4 = 6,")]),
+    "probe_agg int64 keys at 8 blocks an SM (32 registers: spills)": ("probe_agg", True, [
+        ("NARROW_BLOCKS_8 = 6;", "NARROW_BLOCKS_8 = 8;")]),
+    "lower_bound": ("lower_bound", True, []),
+    "lower_bound 4 blocks an SM for every instance (int64 2048-key tiles spill)": (
+        "lower_bound", True, [("  return fit < 4 ? fit : 4;", "  return 4;")]),
     "block_histograms": ("block_histograms", True, []),
     "block_histograms next tile in flight": ("block_histograms", True, [
         ("  for (; t < num_tiles; t += stride) {\n",
@@ -177,8 +189,8 @@ def build(names, nvcc_flags):
         log, _ = proc.communicate()
         if proc.returncode:
             fail(f"nvcc failed for {name}:\n{log}")
-        regs = sorted({line.split(":", 1)[1].strip() for line in log.splitlines()
-                       if "registers" in line})
+        regs = sorted({line.split(":", 1)[-1].strip() for line in log.splitlines()
+                       if "registers" in line or "spill" in line})
         print(f"built {name!r}: {regs}", flush=True)
         libs[name] = so
     return libs
@@ -219,7 +231,8 @@ def main():
         return lib
 
     Rn, Sn, _ = generate_tpc("J2", scale=1, payload_bytes=8, seed=0)
-    R, S = table_from_numpy({"k": Rn["k"]}), table_from_numpy({"k": Sn["k"], "s1": Sn["s1"]})
+    R = table_from_numpy({"k": Rn["k"], "r1": Rn["r1"]})
+    S = table_from_numpy({"k": Sn["k"], "s1": Sn["s1"]})
     p_bits = hj.choose_partition_bits(R.num_rows, hj.BUILD_BLOCK)
     P, cap = 1 << p_bits, hj.BUILD_BLOCK
     dig_r, dig_s = hj._digits(R["k"], p_bits, True), hj._digits(S["k"], p_bits, True)
@@ -279,6 +292,77 @@ def main():
             fns[name] = call
         rounds(fns, f"hash_probe at J2: {n} probe rows, {int(cols[0].shape[0])} build rows, "
                     f"{P} partitions")
+
+    if "probe_agg" in kernels:
+        # the group-join's padded layout, as chip_smoke.py's probe_agg row
+        # lays it out
+        from repro_torch.core import groupjoin as gj
+        from repro_torch.kernels import hash_probe as kprobe
+
+        kr, ks = cols[0], cols[3]
+        bkeys, _, _ = hj.build_blocks(kr, off_r[:P], sz_r[:P], cap)
+        pk, part, src_idx = kprobe.layout_probe_blocks(ks, off_s[:P], sz_s[:P], cap,
+                                                       -(-n // cap) + P)
+        pad = src_idx >= 0
+        safe = src_idx.clamp(min=0)
+        gkb = torch.where(pad, ks[safe], -1)
+        pvb = torch.where(pad, S["s1"][perm_s].to(torch.float32)[safe], 0.0)[:, None, :]
+        bvb = gj._value_blocks(R["r1"][perm_r], off_r[:P], sz_r[:P], cap)[:, None, :]
+        col_src = torch.tensor([0, -1], dtype=torch.int32, device=pk.device)
+        B = pk.shape[0]
+        # both group-key widths: each picks its own 256-row instance, so
+        # the other width's variant times the kept instance again
+        for kb, dtype in ((4, torch.int32), (8, torch.int64)):
+            agg = [t.contiguous() for t in (bkeys, bvb, pk, gkb.to(dtype), pvb.contiguous(),
+                                            part)]
+            want = ref.probe_agg_blocks(*agg, (("probe", 0), ("build", 0)))
+            fns = {}
+            for name, (kernel, exact, _) in VARIANTS.items():
+                if kernel != "probe_agg":
+                    continue
+                fn = load(name).probe_agg
+                out = [torch.empty_like(w) for w in want]
+
+                def call(fn=fn, out=out, name=name, agg=agg, kb=kb):
+                    err = fn(*(t.data_ptr() for t in agg), col_src.data_ptr(), B, P, cap, cap,
+                             1, 1, 2, kb, *(o.data_ptr() for o in out), *launch)
+                    if err:
+                        fail(f"{name}: launch error {err}")
+                call()
+                torch.cuda.synchronize()
+                if exact and not all(torch.equal(o, w) for o, w in zip(out, want)):
+                    fail(f"{name} differs from the plain version ({kb}-byte group keys)")
+                fns[name] = call
+            rounds(fns, f"probe_agg at J2's padded layout, {kb}-byte group keys: {B} "
+                        f"sub-blocks of {cap} rows")
+            del agg, want, fns
+        del pk, part, src_idx, gkb, pvb, bvb, bkeys
+
+    if "lower_bound" in kernels:
+        # SMJ-OM's sweep with int64 keys: S's sorted keys over R's, shifted
+        # past 32 bits (chip_smoke.py's int64 row)
+        kr64 = torch.sort(R["k"]).values.long() << 33
+        ks64 = torch.sort(S["k"]).values.long() << 33
+        want = ref.lower_bound(kr64, ks64)
+        fns = {}
+        for name, (kernel, exact, _) in VARIANTS.items():
+            if kernel != "lower_bound":
+                continue
+            fn = load(name).lower_bound
+            out = torch.empty_like(want)
+
+            def call(fn=fn, out=out, name=name):
+                err = fn(kr64.data_ptr(), kr64.shape[0], ks64.data_ptr(), ks64.shape[0], 8,
+                         out.data_ptr(), *launch)
+                if err:
+                    fail(f"{name}: launch error {err}")
+            call()
+            torch.cuda.synchronize()
+            if exact and not torch.equal(out, want):
+                fail(f"{name} differs from the plain version")
+            fns[name] = call
+        rounds(fns, f"lower_bound, int64 keys: {ks64.shape[0]} over {kr64.shape[0]}")
+        del kr64, ks64, want
 
     if "block_histograms" in kernels:
         pd = (dig_s & 255).contiguous()

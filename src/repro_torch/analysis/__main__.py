@@ -2,12 +2,19 @@
 point against its priced contract and write ANALYSIS.json. Non-zero exit on
 any contract violation: the check that the plan that ran is the plan the
 cost model priced (DESIGN.md §11). The port's counterpart of
-`python -m repro.analysis`, without its kernel lint (not ported yet).
+`python -m repro.analysis`.
 
 Sections:
   operators — phj/smj/nphj joins (both materialization patterns, and the
               m:n modes), all five group-by strategies, the group-join on
               the engine's arm, and the partition and sort planners;
+  kernels   — the launch-configuration lint (`kernel_lint`): every instance
+              of the eight Hopper kernels at every registered shape against
+              the H100's limits, and the sources' atomics. With
+              `--device cpu` the declared launches and the source checks;
+              on the card also the C side's launch configurations and the
+              compiled instances' registers, spills and static shared
+              memory;
   engine    — optimizer-chosen physical plans (join + group-by as chosen
               and with fusion forced off, a filtered top-k, Q18 over a J2
               extract with 8-byte payloads), audited node by node via
@@ -30,6 +37,7 @@ import numpy as np
 
 from . import contracts as C
 from .dispatch_audit import audit
+from .kernel_lint import lint_production_kernels
 
 
 def _operator_entries(device: str):
@@ -145,7 +153,7 @@ def main(argv=None) -> int:
         return 1
     device = str(device)
 
-    report = {"device": device, "operators": {}, "engine": {}}
+    report = {"device": device, "operators": {}, "kernels": {}, "engine": {}}
     n_violations = 0
 
     print("== operators ==")
@@ -163,6 +171,26 @@ def main(argv=None) -> int:
         entry["contract"] = contract.describe()
         entry["violations"] = [f"{type(v).__name__}: {v}" for v in violations]
         report["operators"][name] = entry
+
+    print("== kernels ==")
+    for krep in lint_production_kernels(device):
+        n_violations += len(krep.violations)
+        status = "VIOLATION" if krep.violations else "ok"
+        if krep.instance == "source":
+            print(f"{krep.name}: atomics={krep.atomics} declared-output={krep.output_atomics} "
+                  f"float-atomicAdds={krep.float_atomic_adds} {status}")
+        elif not krep.launched:
+            print(f"{krep.name}: no launch {status}")
+        else:
+            regs = "" if krep.registers is None else \
+                f" regs={krep.registers} spills={krep.spill_bytes}B" + \
+                (f" (declared {krep.declared_spill_bytes}B)" if krep.declared_spill_bytes else "")
+            side = "" if krep.c_config is None else " = C side"
+            print(f"{krep.name}: grid={krep.grid[0]} threads={krep.threads} "
+                  f"smem={krep.dynamic_smem}+{krep.static_smem}B{regs}{side} {status}")
+        for v in krep.violations:
+            print(f"  {type(v).__name__}: {v}")
+        report["kernels"][krep.name] = krep.as_dict()
 
     print("== engine ==")
     from ..engine import executor

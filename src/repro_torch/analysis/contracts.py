@@ -19,8 +19,10 @@ contracts carry the port's own numbers (each pinned in ROADMAP Queue 3):
 PHJ's m:n match index is one stable sort (`hash_join.match_index`), the
 partition_hash group-by sorts each 256-row tile and then the combine, and
 a group-by's or group-join's float sums are run sums, never float
-scatter-adds (`ops.RunSums`). The kernel lint (VMEM budgets, grid
-aliasing) has no counterpart yet, and neither have its two violations.
+scatter-adds (`ops.RunSums`). The kernel lint's two violations,
+`VmemBudgetViolation` and `GridAliasViolation`, keep the JAX package's
+names; `kernel_lint` raises them for the Hopper kernels' launches and
+sources.
 """
 from __future__ import annotations
 
@@ -50,6 +52,21 @@ class DtypePromotionViolation(ContractViolation):
 class FloatScatterViolation(ContractViolation):
     """Float scatter-add outside the approved accumulators (order-dependent
     under the card's atomics)."""
+
+
+class VmemBudgetViolation(ContractViolation):
+    """A kernel's launch does not fit the card: more threads or shared
+    memory than a block takes, more registers than a multiprocessor holds,
+    spills, an empty or oversized grid, or a declared launch that differs
+    from the C side's (`kernel_lint`; the JAX package's name for its VMEM
+    budget)."""
+
+
+class GridAliasViolation(ContractViolation):
+    """A kernel's output depends on the order its atomics land in (a slot
+    claimed by an atomic, an undeclared or order-dependent atomic), without
+    the kernel declaring it (`kernel_lint`; the JAX package's name for two
+    grid steps writing one output block)."""
 
 
 @dataclasses.dataclass(frozen=True)

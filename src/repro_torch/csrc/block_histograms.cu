@@ -22,6 +22,8 @@
 // digit. Keeping the warp's next tile in flight as well, in registers, was
 // no faster (scripts/kernel_variants.py), so the warps the SM holds are what
 // keep its loads in flight.
+#include <algorithm>
+
 #include "common.cuh"
 
 constexpr int WARPS = 8;
@@ -90,22 +92,43 @@ __global__ void __launch_bounds__(WARPS * 32) block_histograms_kernel(
   }
 }
 
-template <bool VEC>
-static int launch(const int* digits, long long n, int num_bins, int tile, int* out,
-                  cudaStream_t stream) {
-  const long long num_tiles = (n + tile - 1) / tile;
-  const size_t smem = static_cast<size_t>(WARPS) * num_bins * sizeof(int);
-  auto kernel = block_histograms_kernel<VEC>;
+static const KernelInstance INSTANCES[] = {
+    {(const void*)block_histograms_kernel<false>, "block_histograms<false>"},
+    {(const void*)block_histograms_kernel<true>, "block_histograms<true>"}};
+EXPORT_INSTANCES(block_histograms)
+
+// The launch of one call: the vector instance for 1024-digit tiles of
+// 16-byte aligned digits, else the digit-by-digit one; WARPS warps a block,
+// each with a sub-histogram in shared memory; as many blocks as fill the
+// card, and no more than one per WARPS tiles.
+static cudaError_t config(const int* digits, long long n, int num_bins, int tile,
+                          LaunchConfig* c) {
+  if (n < 1 || num_bins < 1 || num_bins > 1024 || tile < 1) return cudaErrorInvalidValue;
+  c->instance = tile == VEC_TILE && reinterpret_cast<size_t>(digits) % 16 == 0;
+  c->threads = WARPS * 32;
+  c->smem = static_cast<long long>(WARPS) * num_bins * sizeof(int);
   // at most 1024 bins: 32 KB, under the 48 KB every kernel may take, so the
   // blocks an SM holds do not depend on num_bins past the registers
-  static long long cache[MAX_DEVICES] = {};
-  long long fill = 0;
-  const cudaError_t err = grid_fill(kernel, WARPS * 32, 32 * 1024, cache, &fill);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long want = (num_tiles + WARPS - 1) / WARPS;
-  kernel<<<static_cast<unsigned>(want < fill ? want : fill), WARPS * 32, smem, stream>>>(
-      digits, n, num_bins, tile, num_tiles, out);
-  return launch_status();
+  static Fill cache[2][MAX_DEVICES] = {};
+  Fill fill;
+  auto kernel = c->instance ? block_histograms_kernel<true> : block_histograms_kernel<false>;
+  const cudaError_t err = grid_fill(kernel, c->threads, 32 * 1024, cache[c->instance], &fill);
+  if (err != cudaSuccess) return err;
+  c->sms = fill.sms;
+  c->per_sm = fill.per_sm;
+  const long long want = ((n + tile - 1) / tile + WARPS - 1) / WARPS;
+  c->grid = std::min(want, static_cast<long long>(fill.sms) * fill.per_sm);
+  return cudaSuccess;
+}
+
+extern "C" int block_histograms_launch_config(const void* digits, long long n, int num_bins,
+                                              int tile, int device, long long* out) {
+  DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
+  LaunchConfig c;
+  const cudaError_t err = config(static_cast<const int*>(digits), n, num_bins, tile, &c);
+  put_config(c, out);
+  return static_cast<int>(err);
 }
 
 // digits (n,) int32, n >= 1, 1 <= num_bins <= 1024 -> out
@@ -114,11 +137,12 @@ extern "C" int block_histograms(const void* digits, long long n, int num_bins, i
                                 void* out, void* stream, int device) {
   DeviceScope scope(device);
   if (scope.status() != 0) return scope.status();
-  if (num_bins < 1 || num_bins > 1024 || tile < 1) return static_cast<int>(cudaErrorInvalidValue);
   auto d = static_cast<const int*>(digits);
-  auto o = static_cast<int*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (tile == VEC_TILE && reinterpret_cast<size_t>(d) % 16 == 0)
-    return launch<true>(d, n, num_bins, tile, o, st);
-  return launch<false>(d, n, num_bins, tile, o, st);
+  LaunchConfig c;
+  const cudaError_t err = config(d, n, num_bins, tile, &c);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = c.instance ? block_histograms_kernel<true> : block_histograms_kernel<false>;
+  kernel<<<static_cast<unsigned>(c.grid), c.threads, c.smem, static_cast<cudaStream_t>(stream)>>>(
+      d, n, num_bins, tile, (n + tile - 1) / tile, static_cast<int*>(out));
+  return launch_status();
 }

@@ -133,37 +133,73 @@ clustered_gather_kernel(const T* __restrict__ src, const int* __restrict__ idx, 
   }
 }
 
-template <typename T, bool VEC_IDX>
-static int launch(const void* src, const void* idx, long long n_src, long long n, long long head,
-                  void* out, cudaStream_t stream) {
-  auto kernel = clustered_gather_kernel<T, VEC_IDX>;
-  // the grid that fills the card, found once per kernel and card
-  static long long cache[MAX_DEVICES] = {};
-  long long fill = 0;
-  const cudaError_t err = grid_fill(kernel, THREADS, 0, cache, &fill);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // enough threads for the warp steps and for the scalar head and tail
-  const long long need = std::max(((n - head) / STEP * 32 + THREADS - 1) / THREADS,
-                                  static_cast<long long>(STEP + THREADS - 1) / THREADS);
-  kernel<<<static_cast<unsigned>(std::min(need, fill)), THREADS, 0, stream>>>(
-      static_cast<const T*>(src), static_cast<const int*>(idx), n_src, n,
-      static_cast<int>(head), static_cast<T*>(out));
-  return launch_status();
+static const KernelInstance INSTANCES[] = {
+    {(const void*)clustered_gather_kernel<unsigned, false>, "clustered_gather<4, false>"},
+    {(const void*)clustered_gather_kernel<unsigned, true>, "clustered_gather<4, true>"},
+    {(const void*)clustered_gather_kernel<unsigned long long, false>,
+     "clustered_gather<8, false>"},
+    {(const void*)clustered_gather_kernel<unsigned long long, true>, "clustered_gather<8, true>"}};
+EXPORT_INSTANCES(clustered_gather)
+
+// outputs before out's first 16-byte boundary, copied one by one
+static long long head_of(const void* out, long long n, int elem_bytes) {
+  return std::min(
+      static_cast<long long>((16 - reinterpret_cast<uintptr_t>(out) % 16) % 16 / elem_bytes), n);
 }
 
-template <typename T>
-static int launch_aligned(const void* src, const void* idx, long long n_src, long long n,
-                          void* out, cudaStream_t stream) {
-  constexpr int P = 16 / sizeof(T);
-  // outputs before out's first 16-byte boundary go one by one
-  const long long head =
-      std::min(static_cast<long long>((16 - reinterpret_cast<uintptr_t>(out) % 16) % 16 /
-                                      sizeof(T)),
-               n);
-  // vector index loads need idx + head on a (4 P)-byte boundary
+// the grid of one instance: as many blocks as fill the card (found once per
+// instance and card), and no more than the warp steps and the scalar head
+// and tail need
+template <typename T, bool VEC_IDX>
+static cudaError_t grid_config(long long n, long long head, LaunchConfig* c) {
+  static Fill cache[MAX_DEVICES] = {};
+  Fill fill;
+  const cudaError_t err = grid_fill(clustered_gather_kernel<T, VEC_IDX>, THREADS, 0, cache, &fill);
+  if (err != cudaSuccess) return err;
+  c->sms = fill.sms;
+  c->per_sm = fill.per_sm;
+  const long long need = std::max(((n - head) / STEP * 32 + THREADS - 1) / THREADS,
+                                  static_cast<long long>(STEP + THREADS - 1) / THREADS);
+  c->grid = std::min(need, static_cast<long long>(fill.sms) * fill.per_sm);
+  return cudaSuccess;
+}
+
+// The launch of one call: the instance of the element size, with vector
+// index loads when idx + head lies on a (4 P)-byte boundary; THREADS
+// threads a block, a window of static shared memory a warp.
+static cudaError_t config(const void* idx, long long n, int elem_bytes, const void* out,
+                          LaunchConfig* c) {
+  if (n < 1 || (elem_bytes != 4 && elem_bytes != 8)) return cudaErrorInvalidValue;
+  const long long head = head_of(out, n, elem_bytes);
+  const int P = 16 / elem_bytes;
   const bool vec = (reinterpret_cast<uintptr_t>(idx) + 4 * head) % (4 * P) == 0;
-  return vec ? launch<T, true>(src, idx, n_src, n, head, out, stream)
-             : launch<T, false>(src, idx, n_src, n, head, out, stream);
+  c->instance = 2 * (elem_bytes == 8) + vec;
+  c->threads = THREADS;
+  c->smem = 0;
+  switch (c->instance) {
+    case 0: return grid_config<unsigned, false>(n, head, c);
+    case 1: return grid_config<unsigned, true>(n, head, c);
+    case 2: return grid_config<unsigned long long, false>(n, head, c);
+    default: return grid_config<unsigned long long, true>(n, head, c);
+  }
+}
+
+extern "C" int clustered_gather_launch_config(const void* idx, long long n, int elem_bytes,
+                                              const void* out, int device, long long* out_cfg) {
+  DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
+  LaunchConfig c;
+  const cudaError_t err = config(idx, n, elem_bytes, out, &c);
+  put_config(c, out_cfg);
+  return static_cast<int>(err);
+}
+
+template <typename T, bool VEC_IDX>
+static void launch(const LaunchConfig& c, const void* src, const void* idx, long long n_src,
+                   long long n, void* out, cudaStream_t stream) {
+  clustered_gather_kernel<T, VEC_IDX><<<static_cast<unsigned>(c.grid), c.threads, 0, stream>>>(
+      static_cast<const T*>(src), static_cast<const int*>(idx), n_src, n,
+      static_cast<int>(head_of(out, n, sizeof(T))), static_cast<T*>(out));
 }
 
 // elem_bytes is 4 or 8; idx is int32; src has n_src >= 1 elements; n >= 1.
@@ -171,8 +207,15 @@ extern "C" int clustered_gather(const void* src, const void* idx, long long n_sr
                                 int elem_bytes, void* out, void* stream, int device) {
   DeviceScope scope(device);
   if (scope.status() != 0) return scope.status();
+  LaunchConfig c;
+  const cudaError_t err = config(idx, n, elem_bytes, out, &c);
+  if (err != cudaSuccess) return static_cast<int>(err);
   auto s = static_cast<cudaStream_t>(stream);
-  if (elem_bytes == 8) return launch_aligned<unsigned long long>(src, idx, n_src, n, out, s);
-  if (elem_bytes == 4) return launch_aligned<unsigned>(src, idx, n_src, n, out, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (c.instance) {
+    case 0: launch<unsigned, false>(c, src, idx, n_src, n, out, s); break;
+    case 1: launch<unsigned, true>(c, src, idx, n_src, n, out, s); break;
+    case 2: launch<unsigned long long, false>(c, src, idx, n_src, n, out, s); break;
+    default: launch<unsigned long long, true>(c, src, idx, n_src, n, out, s); break;
+  }
+  return launch_status();
 }

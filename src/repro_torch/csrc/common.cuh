@@ -38,36 +38,105 @@ class DeviceScope {
 // have a slot each; later ones are found anew on every call.
 constexpr int MAX_DEVICES = 64;
 
-// The number of blocks of `kernel` that fill the current card at `threads`
-// threads and `smem` bytes of dynamic shared memory, raising the kernel's
-// dynamic shared-memory limit to smem first (an attribute of each card; a
-// kernel with static shared memory needs it below 48 KB too). Kept in
+// The card's multiprocessors and the blocks of one kernel instance that one
+// of them holds; 0 until found.
+struct Fill {
+  int sms = 0, per_sm = 0;
+};
+
+// The blocks of `kernel` that fill the current card at `threads` threads
+// and `smem` bytes of dynamic shared memory, raising the kernel's dynamic
+// shared-memory limit to smem first (an attribute of each card; a kernel
+// with static shared memory needs it below 48 KB too). Kept in
 // cache[device] once found.
 template <typename Kernel>
-static cudaError_t grid_fill(Kernel kernel, int threads, size_t smem,
-                             long long (&cache)[MAX_DEVICES], long long* fill) {
+static cudaError_t grid_fill(Kernel kernel, int threads, size_t smem, Fill (&cache)[MAX_DEVICES],
+                             Fill* fill) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   const bool slot = device < MAX_DEVICES;
-  if (slot && cache[device] > 0) {
+  if (slot && cache[device].per_sm > 0) {
     *fill = cache[device];
     return cudaSuccess;
   }
-  int sms = 0, per_sm = 0;
+  Fill f;
   if (smem > 0)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    err = cudaDeviceGetAttribute(&f.sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&f.per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *fill = static_cast<long long>(sms) * per_sm;
-  if (slot) cache[device] = *fill;
+  if (f.per_sm < 1) return cudaErrorInvalidConfiguration;
+  *fill = f;
+  if (slot) cache[device] = f;
   return cudaSuccess;
 }
+
+// The launch one call makes: which kernel instance (its index in the
+// library's INSTANCES), threads a block, bytes of dynamic shared memory and
+// blocks. Each library finds it with one host helper that its launch calls,
+// and hands the same helper's answer to Python through its
+// `<name>_launch_config` entry, which launches nothing
+// (analysis/kernel_lint.py holds it against its declaration). sms and
+// per_sm are what the grid was capped by: the card's multiprocessors and
+// the blocks one of them holds (per_sm a fixed count where the library does
+// not ask the occupancy calculator).
+struct LaunchConfig {
+  int instance = 0, threads = 0;
+  long long smem = 0, grid = 0;
+  int sms = 0, per_sm = 0;
+};
+
+// out: (instance, threads, smem, grid, sms, per_sm)
+static inline void put_config(const LaunchConfig& c, long long* out) {
+  out[0] = c.instance;
+  out[1] = c.threads;
+  out[2] = c.smem;
+  out[3] = c.grid;
+  out[4] = c.sms;
+  out[5] = c.per_sm;
+}
+
+// One compiled kernel instance a launch can pick.
+struct KernelInstance {
+  const void* fn;
+  const char* name;
+};
+
+// cudaFuncGetAttributes of instance i of a library's table, into out:
+// (registers a thread, local bytes a thread (spills), static shared memory,
+// most threads a block, dynamic shared-memory limit, instances in the table)
+static int instance_attributes(const KernelInstance* table, int count, int i, int device,
+                               long long* out) {
+  DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
+  if (i < 0 || i >= count) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, table[i].fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<long long>(a.localSizeBytes);
+  out[2] = static_cast<long long>(a.sharedSizeBytes);
+  out[3] = a.maxThreadsPerBlock;
+  out[4] = a.maxDynamicSharedSizeBytes;
+  out[5] = count;
+  return 0;
+}
+
+// `<lib>_func_attributes(i, device, out)` and `<lib>_instance_name(i)` over
+// the library's INSTANCES table
+#define EXPORT_INSTANCES(lib)                                                                \
+  extern "C" int lib##_func_attributes(int i, int device, long long* out) {                 \
+    return instance_attributes(INSTANCES, sizeof(INSTANCES) / sizeof(INSTANCES[0]), i,      \
+                               device, out);                                                 \
+  }                                                                                          \
+  extern "C" const char* lib##_instance_name(int i) {                                       \
+    const int count = sizeof(INSTANCES) / sizeof(INSTANCES[0]);                             \
+    return i >= 0 && i < count ? INSTANCES[i].name : "";                                    \
+  }
 
 // cp.async: asynchronous copies from device memory into shared memory, in
 // 4- or 16-byte pieces, waited for by commit groups

@@ -172,21 +172,49 @@ __global__ void __launch_bounds__(THREADS) hash_probe_kernel(
   }
 }
 
+static const KernelInstance INSTANCES[] = {
+    {(const void*)hash_probe_kernel<32>, "hash_probe<32>"},
+    {(const void*)hash_probe_kernel<THREADS>, "hash_probe<256>"}};
+EXPORT_INSTANCES(hash_probe)
+
+// the groups of one instance: a warp's (build blocks of up to WARP_CAP keys)
+// or the block's; each with a table of 2^TABLE_BITS 8-byte entries
 template <int GROUP, int TABLE_BITS>
-static int launch(const int* build, const int* off_r, const int* sz_r, const int* probe,
-                  const int* off_s, const int* sz_s, int num_parts, long long n_probe, int cap,
-                  int* vid, unsigned char* hit, cudaStream_t stream) {
+static cudaError_t group_config(int num_parts, LaunchConfig* c) {
   constexpr int GROUPS = THREADS / GROUP;
-  constexpr size_t smem = static_cast<size_t>(GROUPS) * (2 << TABLE_BITS) * sizeof(int);
-  auto kernel = hash_probe_kernel<GROUP>;
-  static long long cache[MAX_DEVICES] = {};
-  long long fill = 0;
-  const cudaError_t err = grid_fill(kernel, THREADS, smem, cache, &fill);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  c->threads = THREADS;
+  c->smem = static_cast<long long>(GROUPS) * (2 << TABLE_BITS) * sizeof(int);
+  static Fill cache[MAX_DEVICES] = {};
+  Fill fill;
+  const cudaError_t err = grid_fill(hash_probe_kernel<GROUP>, THREADS, c->smem, cache, &fill);
+  if (err != cudaSuccess) return err;
+  c->sms = fill.sms;
+  c->per_sm = fill.per_sm;
   const long long want = (num_parts + GROUPS - 1) / GROUPS;
-  kernel<<<static_cast<unsigned>(want < fill ? want : fill), THREADS, smem, stream>>>(
-      build, off_r, sz_r, probe, off_s, sz_s, num_parts, n_probe, cap, TABLE_BITS, vid, hit);
-  return launch_status();
+  c->grid = want < static_cast<long long>(fill.sms) * fill.per_sm
+                ? want
+                : static_cast<long long>(fill.sms) * fill.per_sm;
+  return cudaSuccess;
+}
+
+// The launch of one call: a warp a partition for build blocks of up to
+// WARP_CAP keys, else the whole block; as many blocks as fill the card, and
+// no more than one per GROUPS partitions.
+static cudaError_t config(int num_parts, int cap, LaunchConfig* c) {
+  // a table keeps at least one empty entry, so every lookup ends
+  if (num_parts < 1 || cap < 1 || cap >= (1 << BLOCK_TABLE_BITS)) return cudaErrorInvalidValue;
+  c->instance = cap > WARP_CAP;
+  return c->instance ? group_config<THREADS, BLOCK_TABLE_BITS>(num_parts, c)
+                     : group_config<32, WARP_TABLE_BITS>(num_parts, c);
+}
+
+extern "C" int hash_probe_launch_config(int num_parts, int cap, int device, long long* out) {
+  DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
+  LaunchConfig c;
+  const cudaError_t err = config(num_parts, cap, &c);
+  put_config(c, out);
+  return static_cast<int>(err);
 }
 
 // build (n_build,) int32 keys in partition order, off_r and sz_r (num_parts,)
@@ -200,20 +228,15 @@ extern "C" int hash_probe(const void* build, const void* off_r, const void* sz_r
                           int device) {
   DeviceScope scope(device);
   if (scope.status() != 0) return scope.status();
-  // a table keeps at least one empty entry, so every lookup ends
-  if (cap < 1 || cap >= (1 << BLOCK_TABLE_BITS)) return static_cast<int>(cudaErrorInvalidValue);
-  auto b = static_cast<const int*>(build);
-  auto orr = static_cast<const int*>(off_r);
-  auto szr = static_cast<const int*>(sz_r);
-  auto pr = static_cast<const int*>(probe);
-  auto os = static_cast<const int*>(off_s);
-  auto szs = static_cast<const int*>(sz_s);
-  auto v = static_cast<int*>(vid);
-  auto h = static_cast<unsigned char*>(hit);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (cap <= WARP_CAP)
-    return launch<32, WARP_TABLE_BITS>(b, orr, szr, pr, os, szs, num_parts, n_probe, cap, v, h,
-                                       st);
-  return launch<THREADS, BLOCK_TABLE_BITS>(b, orr, szr, pr, os, szs, num_parts, n_probe, cap, v,
-                                           h, st);
+  LaunchConfig c;
+  const cudaError_t err = config(num_parts, cap, &c);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = c.instance ? hash_probe_kernel<THREADS> : hash_probe_kernel<32>;
+  kernel<<<static_cast<unsigned>(c.grid), c.threads, c.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(build), static_cast<const int*>(off_r),
+      static_cast<const int*>(sz_r), static_cast<const int*>(probe),
+      static_cast<const int*>(off_s), static_cast<const int*>(sz_s), num_parts, n_probe, cap,
+      c.instance ? BLOCK_TABLE_BITS : WARP_TABLE_BITS, static_cast<int*>(vid),
+      static_cast<unsigned char*>(hit));
+  return launch_status();
 }

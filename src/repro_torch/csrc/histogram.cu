@@ -62,29 +62,56 @@ histogram_kernel(const int* __restrict__ digits, long long n, int head, int num_
   }
 }
 
+static const KernelInstance INSTANCES[] = {
+    {(const void*)histogram_kernel<false>, "histogram<false>"},
+    {(const void*)histogram_kernel<true>, "histogram<true>"}};
+EXPORT_INSTANCES(histogram)
+
+// digits before the first 16-byte boundary, counted one by one
+static int head_of(const int* digits, long long n) {
+  return static_cast<int>(std::min(
+      static_cast<long long>((16 - reinterpret_cast<uintptr_t>(digits) % 16) % 16 / 4), n));
+}
+
+// The launch of one call: the shared-memory instance when the counts fit
+// SMEM_BINS, else the device-memory one; THREADS threads a block, one
+// 16-byte vector a thread, at most BLOCKS_PER_SM blocks an SM.
+static cudaError_t config(const int* digits, long long n, int num_bins, int device,
+                          LaunchConfig* c) {
+  if (n < 1 || num_bins < 1) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaDeviceGetAttribute(&c->sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  c->instance = num_bins <= SMEM_BINS;
+  c->threads = THREADS;
+  c->smem = c->instance ? static_cast<long long>(num_bins) * sizeof(int) : 0;
+  c->per_sm = BLOCKS_PER_SM;
+  const long long n_vec = (n - head_of(digits, n)) / 4;
+  const long long want = (std::max(n_vec, 4LL) + THREADS - 1) / THREADS;
+  c->grid = std::min(want, static_cast<long long>(c->sms) * BLOCKS_PER_SM);
+  return cudaSuccess;
+}
+
+extern "C" int histogram_launch_config(const void* digits, long long n, int num_bins, int device,
+                                       long long* out) {
+  DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
+  LaunchConfig c;
+  const cudaError_t err = config(static_cast<const int*>(digits), n, num_bins, device, &c);
+  put_config(c, out);
+  return static_cast<int>(err);
+}
+
 // digits (n,) int32, n >= 1 -> out (num_bins,) int32, zeroed by the caller.
 extern "C" int histogram(const void* digits, long long n, int num_bins, void* out, void* stream,
                          int device) {
   DeviceScope scope(device);
   if (scope.status() != 0) return scope.status();
-  int sms = 0;
-  const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int* d = static_cast<const int*>(digits);
-  // digits before the first 16-byte boundary are counted one by one
-  const int head = static_cast<int>(
-      std::min(static_cast<long long>((16 - reinterpret_cast<uintptr_t>(d) % 16) % 16 / 4), n));
-  const long long n_vec = (n - head) / 4;
-  const long long want = (std::max(n_vec, 4LL) + THREADS - 1) / THREADS;
-  const unsigned blocks =
-      static_cast<unsigned>(std::min(want, static_cast<long long>(sms) * BLOCKS_PER_SM));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (num_bins <= SMEM_BINS) {
-    histogram_kernel<true><<<blocks, THREADS, num_bins * sizeof(int), st>>>(
-        d, n, head, num_bins, static_cast<int*>(out));
-  } else {
-    histogram_kernel<false><<<blocks, THREADS, 0, st>>>(d, n, head, num_bins,
-                                                        static_cast<int*>(out));
-  }
+  LaunchConfig c;
+  const cudaError_t err = config(d, n, num_bins, device, &c);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = c.instance ? histogram_kernel<true> : histogram_kernel<false>;
+  kernel<<<static_cast<unsigned>(c.grid), c.threads, c.smem, static_cast<cudaStream_t>(stream)>>>(
+      d, n, head_of(d, n), num_bins, static_cast<int*>(out));
   return launch_status();
 }

@@ -189,8 +189,19 @@ __device__ __forceinline__ void stage(K* window, int at, int mask, const K* __re
   }
 }
 
+// The blocks of an instance that one H100 SM's shared memory holds (228 KB,
+// 1 KB of it reserved a block), at most 4: the register cap of its
+// __launch_bounds__. A cap the shared memory cannot fill only makes the
+// compiler spill: int64 keys in tiles of 2048 hold 3 blocks an SM.
 template <typename K, int PER>
-__global__ void __launch_bounds__(THREADS, 4)
+constexpr int min_blocks() {
+  constexpr int smem = RING_BYTES + 2 * THREADS * PER * static_cast<int>(sizeof(K));
+  constexpr int fit = 233472 / (smem + 1024);
+  return fit < 4 ? fit : 4;
+}
+
+template <typename K, int PER>
+__global__ void __launch_bounds__(THREADS, min_blocks<K, PER>())
 lower_bound_kernel(const K* __restrict__ build, int n_build, const K* __restrict__ probe,
                    long long n_probe, long long num_tiles, bool aligned, int* __restrict__ out) {
   constexpr int TILE = THREADS * PER;
@@ -417,44 +428,83 @@ lower_bound_kernel(const K* __restrict__ build, int n_build, const K* __restrict
   cp_async_wait_all();
 }
 
+static const KernelInstance INSTANCES[] = {
+    {(const void*)lower_bound_kernel<int, 8>, "lower_bound<4, 8>"},
+    {(const void*)lower_bound_kernel<int, 4>, "lower_bound<4, 4>"},
+    {(const void*)lower_bound_kernel<int, 2>, "lower_bound<4, 2>"},
+    {(const void*)lower_bound_kernel<int, 1>, "lower_bound<4, 1>"},
+    {(const void*)lower_bound_kernel<long long, 8>, "lower_bound<8, 8>"},
+    {(const void*)lower_bound_kernel<long long, 4>, "lower_bound<8, 4>"},
+    {(const void*)lower_bound_kernel<long long, 2>, "lower_bound<8, 2>"},
+    {(const void*)lower_bound_kernel<long long, 1>, "lower_bound<8, 1>"}};
+EXPORT_INSTANCES(lower_bound)
+
+// the grid of one instance: as many blocks as fill the card (found, and the
+// kernel's shared-memory limit raised, once per instance and card), and no
+// more than the tiles
 template <typename K, int PER>
-static int launch(const K* build, int n_build, const K* probe, long long n_probe, int* out,
-                  cudaStream_t stream) {
+static cudaError_t grid_config(long long n_probe, LaunchConfig* c) {
   constexpr int TILE = THREADS * PER;
-  const size_t smem = RING_BYTES + 2 * TILE * sizeof(K);
-  auto kernel = lower_bound_kernel<K, PER>;
-  // the grid that fills the card, found (and the kernel's shared-memory
-  // limit raised) once per kernel and card
-  static long long cache[MAX_DEVICES] = {};
-  long long fill = 0;
-  const cudaError_t err = grid_fill(kernel, THREADS, smem, cache, &fill);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  c->smem = RING_BYTES + 2 * TILE * sizeof(K);
+  static Fill cache[MAX_DEVICES] = {};
+  Fill fill;
+  const cudaError_t err = grid_fill(lower_bound_kernel<K, PER>, THREADS, c->smem, cache, &fill);
+  if (err != cudaSuccess) return err;
+  c->per_sm = fill.per_sm;
   const long long tiles = (n_probe + TILE - 1) / TILE;
-  const long long blocks = tiles < fill ? tiles : fill;
-  const bool aligned = reinterpret_cast<size_t>(probe) % 16 == 0;
-  kernel<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(build, n_build, probe,
-                                                                   n_probe, tiles, aligned, out);
-  return launch_status();
+  const long long cap = static_cast<long long>(fill.sms) * fill.per_sm;
+  c->grid = tiles < cap ? tiles : cap;
+  return cudaSuccess;
 }
 
-// the widest tile (2048 keys, 256 at the least) that leaves at least two
-// tiles per SM
-template <typename K>
-static int launch_keys(const void* build, int n_build, const void* probe, long long n_probe,
-                       void* out, cudaStream_t stream) {
-  int device = 0, sms = 0;
+// The launch of one call: the instance of the key's width and of the widest
+// tile (2048 keys, 256 at the least) that leaves at least two tiles per SM;
+// THREADS threads a block, the ring and two tiles of keys in dynamic shared
+// memory.
+static cudaError_t config(long long n_probe, int key_bytes, LaunchConfig* c) {
+  if (n_probe < 1) return cudaErrorInvalidValue;
+  int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const K* b = static_cast<const K*>(build);
-  const K* p = static_cast<const K*>(probe);
-  int* o = static_cast<int*>(out);
-  const long long want = 2LL * sms;
-  if (n_probe >= want * THREADS * 8) return launch<K, 8>(b, n_build, p, n_probe, o, stream);
-  if (n_probe >= want * THREADS * 4) return launch<K, 4>(b, n_build, p, n_probe, o, stream);
-  if (n_probe >= want * THREADS * 2) return launch<K, 2>(b, n_build, p, n_probe, o, stream);
-  return launch<K, 1>(b, n_build, p, n_probe, o, stream);
+    err = cudaDeviceGetAttribute(&c->sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long want = 2LL * c->sms;
+  const int per_branch = n_probe >= want * THREADS * 8   ? 0
+                         : n_probe >= want * THREADS * 4 ? 1
+                         : n_probe >= want * THREADS * 2 ? 2
+                                                         : 3;
+  c->instance = 4 * (key_bytes == 8) + per_branch;
+  c->threads = THREADS;
+  switch (c->instance) {
+    case 0: return grid_config<int, 8>(n_probe, c);
+    case 1: return grid_config<int, 4>(n_probe, c);
+    case 2: return grid_config<int, 2>(n_probe, c);
+    case 3: return grid_config<int, 1>(n_probe, c);
+    case 4: return grid_config<long long, 8>(n_probe, c);
+    case 5: return grid_config<long long, 4>(n_probe, c);
+    case 6: return grid_config<long long, 2>(n_probe, c);
+    default: return grid_config<long long, 1>(n_probe, c);
+  }
+}
+
+extern "C" int lower_bound_launch_config(long long n_probe, int key_bytes, int device,
+                                         long long* out) {
+  DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
+  LaunchConfig c;
+  const cudaError_t err = config(n_probe, key_bytes, &c);
+  put_config(c, out);
+  return static_cast<int>(err);
+}
+
+template <typename K, int PER>
+static void launch(const LaunchConfig& c, const void* build, int n_build, const void* probe,
+                   long long n_probe, void* out, cudaStream_t stream) {
+  constexpr int TILE = THREADS * PER;
+  const bool aligned = reinterpret_cast<size_t>(probe) % 16 == 0;
+  lower_bound_kernel<K, PER><<<static_cast<unsigned>(c.grid), c.threads, c.smem, stream>>>(
+      static_cast<const K*>(build), n_build, static_cast<const K*>(probe), n_probe,
+      (n_probe + TILE - 1) / TILE, aligned, static_cast<int*>(out));
 }
 
 // build (n_build,) and probe (n_probe,) of one key type, int32 or int64
@@ -464,7 +514,19 @@ extern "C" int lower_bound(const void* build, int n_build, const void* probe, lo
                            int key_bytes, void* out, void* stream, int device) {
   DeviceScope scope(device);
   if (scope.status() != 0) return scope.status();
+  LaunchConfig c;
+  const cudaError_t err = config(n_probe, key_bytes, &c);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (key_bytes == 8) return launch_keys<long long>(build, n_build, probe, n_probe, out, st);
-  return launch_keys<int>(build, n_build, probe, n_probe, out, st);
+  switch (c.instance) {
+    case 0: launch<int, 8>(c, build, n_build, probe, n_probe, out, st); break;
+    case 1: launch<int, 4>(c, build, n_build, probe, n_probe, out, st); break;
+    case 2: launch<int, 2>(c, build, n_build, probe, n_probe, out, st); break;
+    case 3: launch<int, 1>(c, build, n_build, probe, n_probe, out, st); break;
+    case 4: launch<long long, 8>(c, build, n_build, probe, n_probe, out, st); break;
+    case 5: launch<long long, 4>(c, build, n_build, probe, n_probe, out, st); break;
+    case 6: launch<long long, 2>(c, build, n_build, probe, n_probe, out, st); break;
+    default: launch<long long, 1>(c, build, n_build, probe, n_probe, out, st); break;
+  }
+  return launch_status();
 }

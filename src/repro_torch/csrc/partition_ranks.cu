@@ -134,34 +134,58 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
+static const KernelInstance INSTANCES[] = {
+    {(const void*)partition_ranks_kernel, "partition_ranks"}};
+EXPORT_INSTANCES(partition_ranks)
+
+// The launch of one call: WARPS warps a block, each with its buffers and
+// peer words in dynamic shared memory (the limit raised past 48 KB when
+// they need more); as many blocks as fill the card, and no more than one
+// per WARPS tiles.
+static cudaError_t config(long long n, int num_bins, int tile, int device, LaunchConfig* c) {
+  if (n < 1 || num_bins < 1 || tile < 1) return cudaErrorInvalidValue;
+  c->threads = WARPS * 32;
+  c->smem = static_cast<long long>(WARPS) * warp_words(num_bins, tile) * sizeof(int);
+  cudaError_t err = cudaSuccess;
+  if (c->smem > 48 * 1024)
+    err = cudaFuncSetAttribute(partition_ranks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(c->smem));
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&c->sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c->per_sm, partition_ranks_kernel,
+                                                        c->threads, c->smem);
+  if (err != cudaSuccess) return err;
+  if (c->per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long num_tiles = (n + tile - 1) / tile;
+  c->grid = min_ll(static_cast<long long>(c->sms) * c->per_sm, (num_tiles + WARPS - 1) / WARPS);
+  return cudaSuccess;
+}
+
+extern "C" int partition_ranks_launch_config(long long n, int num_bins, int tile, int device,
+                                             long long* out) {
+  DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
+  LaunchConfig c;
+  const cudaError_t err = config(n, num_bins, tile, device, &c);
+  put_config(c, out);
+  return static_cast<int>(err);
+}
+
 // base: (ceil(n / tile), num_bins) int32; dest: (n,) int32.
 extern "C" int partition_ranks(const void* digits, const void* base, long long n,
                                int num_bins, int tile, void* dest, void* stream,
                                int device) {
   DeviceScope scope(device);
   if (scope.status() != 0) return scope.status();
-  const size_t smem = static_cast<size_t>(WARPS) * warp_words(num_bins, tile) * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(partition_ranks_kernel,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int sms = 0, per_sm = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, partition_ranks_kernel,
-                                                        WARPS * 32, smem);
+  LaunchConfig c;
+  const cudaError_t err = config(n, num_bins, tile, device, &c);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int* d = static_cast<const int*>(digits);
   const int* b = static_cast<const int*>(base);
-  const long long num_tiles = (n + tile - 1) / tile;
-  const long long fill = static_cast<long long>(sms) * per_sm;
-  const long long blocks = min_ll(fill, (num_tiles + WARPS - 1) / WARPS);
   const bool vec_digits = tile % 4 == 0 && reinterpret_cast<size_t>(d) % 16 == 0;
   const bool vec_base = num_bins % 4 == 0 && reinterpret_cast<size_t>(b) % 16 == 0;
-  partition_ranks_kernel<<<static_cast<unsigned>(blocks), WARPS * 32, smem,
+  partition_ranks_kernel<<<static_cast<unsigned>(c.grid), c.threads, c.smem,
                            static_cast<cudaStream_t>(stream)>>>(
       d, b, n, num_bins, tile, vec_digits, vec_base, static_cast<int*>(dest));
   return launch_status();

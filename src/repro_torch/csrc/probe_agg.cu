@@ -56,6 +56,14 @@
 #include "common.cuh"
 
 constexpr int MAX_ROWS = 1024;  // one thread per row
+// sub-blocks of up to NARROW_ROWS rows run NARROW_BLOCKS_4 blocks an SM
+// with int32 group keys, NARROW_BLOCKS_8 with int64 ones (fewer resident
+// blocks left the SMs waiting); wider ones one. Eight blocks cap a thread
+// at 32 registers: with int32 keys it spills 8 bytes, and six blocks (40
+// registers, no spill) took 3.7% longer at J2; with int64 keys it spills 24
+// bytes and took 13% longer than six (scripts/kernel_variants.py --kernel
+// probe_agg; kernel_lint.py declares the int32 spill).
+constexpr int NARROW_ROWS = 256, NARROW_BLOCKS_4 = 8, NARROW_BLOCKS_8 = 6;
 
 // smallest b with 2^b >= 2 n: the tables stay at most half full
 __host__ __device__ inline int table_bits(int n) {
@@ -320,51 +328,80 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
   }
 }
 
+static const KernelInstance INSTANCES[] = {
+    {(const void*)probe_agg_kernel<int, NARROW_ROWS, NARROW_BLOCKS_4>, "probe_agg<4, 256, 8>"},
+    {(const void*)probe_agg_kernel<int, MAX_ROWS, 1>, "probe_agg<4, 1024, 1>"},
+    {(const void*)probe_agg_kernel<long long, NARROW_ROWS, NARROW_BLOCKS_8>,
+     "probe_agg<8, 256, 6>"},
+    {(const void*)probe_agg_kernel<long long, MAX_ROWS, 1>, "probe_agg<8, 1024, 1>"}};
+EXPORT_INSTANCES(probe_agg)
+
+// the grid of one instance: as many blocks as the occupancy calculator puts
+// on the card at this call's shared memory (the limit raised past 48 KB
+// when it needs more), and no more than the sub-blocks
 template <typename K, int MAX_THREADS, int MIN_BLOCKS>
-static int launch(const void* bkeys, const void* bvals, const void* probe, const void* gk,
-                  const void* pv, const void* block_part, const void* col_src,
-                  long long num_blocks, int num_parts, int cap_r, int cap_s, int cb, int cp,
-                  int c, void* pk, void* ps, void* pc, cudaStream_t stream) {
-  const size_t smem = smem_bytes(cap_r, cap_s, sizeof(K), cb, cp, c);
+static cudaError_t grid_config(long long num_blocks, LaunchConfig* c) {
   auto kernel = probe_agg_kernel<K, MAX_THREADS, MIN_BLOCKS>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int threads = ((cap_s + 31) / 32) * 32;
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  cudaError_t err = cudaSuccess;
+  if (c->smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(c->smem));
+  int device = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    err = cudaDeviceGetAttribute(&c->sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const long long fill = static_cast<long long>(sms) * per_sm;
-  const long long blocks = num_blocks < fill ? num_blocks : fill;
-  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
-      static_cast<const int*>(bkeys), static_cast<const float*>(bvals),
-      static_cast<const int*>(probe), static_cast<const K*>(gk), static_cast<const float*>(pv),
-      static_cast<const int*>(block_part), static_cast<const int*>(col_src), num_blocks,
-      num_parts, cap_r, cap_s, cb, cp, c, static_cast<K*>(pk), static_cast<float*>(ps),
-      static_cast<int*>(pc));
-  return launch_status();
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c->per_sm, kernel, c->threads, c->smem);
+  if (err != cudaSuccess) return err;
+  if (c->per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long fill = static_cast<long long>(c->sms) * c->per_sm;
+  c->grid = num_blocks < fill ? num_blocks : fill;
+  return cudaSuccess;
 }
 
-// sub-blocks of up to 256 rows run eight blocks an SM (32 registers a
-// thread: fewer resident blocks left the SMs waiting); wider ones one
-template <typename K>
-static int launch_rows(const void* bkeys, const void* bvals, const void* probe, const void* gk,
-                       const void* pv, const void* block_part, const void* col_src,
-                       long long num_blocks, int num_parts, int cap_r, int cap_s, int cb, int cp,
-                       int c, void* pk, void* ps, void* pc, cudaStream_t stream) {
-  if (cap_s < 1 || cap_s > MAX_ROWS || cap_r < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (cap_s <= 256)
-    return launch<K, 256, 8>(bkeys, bvals, probe, gk, pv, block_part, col_src, num_blocks,
-                             num_parts, cap_r, cap_s, cb, cp, c, pk, ps, pc, stream);
-  return launch<K, MAX_ROWS, 1>(bkeys, bvals, probe, gk, pv, block_part, col_src, num_blocks,
-                                num_parts, cap_r, cap_s, cb, cp, c, pk, ps, pc, stream);
+// The launch of one call: the instance of the group key's width and of the
+// sub-block's rows, a thread a row (rounded up to whole warps), the tables,
+// words and double buffer of smem_bytes in dynamic shared memory.
+static cudaError_t config(long long num_blocks, int cap_r, int cap_s, int cb, int cp, int c_cols,
+                          int key_bytes, LaunchConfig* c) {
+  if (num_blocks < 1 || cap_s < 1 || cap_s > MAX_ROWS || cap_r < 1) return cudaErrorInvalidValue;
+  const bool wide = key_bytes == 8;
+  c->instance = 2 * wide + (cap_s > NARROW_ROWS);
+  c->threads = ((cap_s + 31) / 32) * 32;
+  c->smem = static_cast<long long>(
+      smem_bytes(cap_r, cap_s, wide ? sizeof(long long) : sizeof(int), cb, cp, c_cols));
+  switch (c->instance) {
+    case 0: return grid_config<int, NARROW_ROWS, NARROW_BLOCKS_4>(num_blocks, c);
+    case 1: return grid_config<int, MAX_ROWS, 1>(num_blocks, c);
+    case 2: return grid_config<long long, NARROW_ROWS, NARROW_BLOCKS_8>(num_blocks, c);
+    default: return grid_config<long long, MAX_ROWS, 1>(num_blocks, c);
+  }
+}
+
+extern "C" int probe_agg_launch_config(long long num_blocks, int cap_r, int cap_s, int cb,
+                                       int cp, int c_cols, int key_bytes, int device,
+                                       long long* out) {
+  DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
+  LaunchConfig c;
+  const cudaError_t err = config(num_blocks, cap_r, cap_s, cb, cp, c_cols, key_bytes, &c);
+  put_config(c, out);
+  return static_cast<int>(err);
+}
+
+template <typename K, int MAX_THREADS, int MIN_BLOCKS>
+static void launch(const LaunchConfig& lc, const void* bkeys, const void* bvals,
+                   const void* probe, const void* gk, const void* pv, const void* block_part,
+                   const void* col_src, long long num_blocks, int num_parts, int cap_r,
+                   int cap_s, int cb, int cp, int c, void* pk, void* ps, void* pc,
+                   cudaStream_t stream) {
+  probe_agg_kernel<K, MAX_THREADS, MIN_BLOCKS>
+      <<<static_cast<unsigned>(lc.grid), lc.threads, lc.smem, stream>>>(
+          static_cast<const int*>(bkeys), static_cast<const float*>(bvals),
+          static_cast<const int*>(probe), static_cast<const K*>(gk),
+          static_cast<const float*>(pv), static_cast<const int*>(block_part),
+          static_cast<const int*>(col_src), num_blocks, num_parts, cap_r, cap_s, cb, cp, c,
+          static_cast<K*>(pk), static_cast<float*>(ps), static_cast<int*>(pc));
 }
 
 // bkeys (num_parts, cap_r) int32, bvals (num_parts, cb, cap_r) float32,
@@ -379,10 +416,30 @@ extern "C" int probe_agg(const void* bkeys, const void* bvals, const void* probe
                          void* stream, int device) {
   DeviceScope scope(device);
   if (scope.status() != 0) return scope.status();
+  LaunchConfig lc;
+  const cudaError_t err = config(num_blocks, cap_r, cap_s, cb, cp, c, key_bytes, &lc);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (key_bytes == 8)
-    return launch_rows<long long>(bkeys, bvals, probe, gk, pv, block_part, col_src, num_blocks,
-                                  num_parts, cap_r, cap_s, cb, cp, c, pk, ps, pc, st);
-  return launch_rows<int>(bkeys, bvals, probe, gk, pv, block_part, col_src, num_blocks,
-                          num_parts, cap_r, cap_s, cb, cp, c, pk, ps, pc, st);
+  switch (lc.instance) {
+    case 0:
+      launch<int, NARROW_ROWS, NARROW_BLOCKS_4>(lc, bkeys, bvals, probe, gk, pv, block_part,
+                                                col_src, num_blocks, num_parts, cap_r, cap_s, cb,
+                                                cp, c, pk, ps, pc, st);
+      break;
+    case 1:
+      launch<int, MAX_ROWS, 1>(lc, bkeys, bvals, probe, gk, pv, block_part, col_src, num_blocks,
+                               num_parts, cap_r, cap_s, cb, cp, c, pk, ps, pc, st);
+      break;
+    case 2:
+      launch<long long, NARROW_ROWS, NARROW_BLOCKS_8>(lc, bkeys, bvals, probe, gk, pv,
+                                                      block_part, col_src, num_blocks, num_parts,
+                                                      cap_r, cap_s, cb, cp, c, pk, ps, pc, st);
+      break;
+    default:
+      launch<long long, MAX_ROWS, 1>(lc, bkeys, bvals, probe, gk, pv, block_part, col_src,
+                                     num_blocks, num_parts, cap_r, cap_s, cb, cp, c, pk, ps, pc,
+                                     st);
+      break;
+  }
+  return launch_status();
 }

@@ -458,25 +458,48 @@ static long long state_words(long long n, int chunk_rows) {
   return ((n + chunk_rows - 1) / chunk_rows + 1) * STATUS_STRIDE;
 }
 
+static const KernelInstance INSTANCES[] = {
+    {(const void*)segsum_partials_kernel<int>, "segsum_partials<4>"},
+    {(const void*)segsum_partials_kernel<long long>, "segsum_partials<8>"}};
+EXPORT_INSTANCES(segsum_partials)
+
+// the grid of one instance: as many blocks as fill the card, and no more
+// than the chunks
 template <typename K>
-static int launch(const void* keys, const void* vals, long long n, int tile, void* pk, void* ps,
-                  void* pc, void* state, cudaStream_t stream) {
+static cudaError_t grid_config(long long num_chunks, LaunchConfig* c) {
+  c->smem = static_cast<long long>(smem_bytes<K>());
+  static Fill cache[MAX_DEVICES] = {};
+  Fill fill;
+  const cudaError_t err =
+      grid_fill(segsum_partials_kernel<K>, THREADS, smem_bytes<K>(), cache, &fill);
+  if (err != cudaSuccess) return err;
+  c->sms = fill.sms;
+  c->per_sm = fill.per_sm;
+  const long long cap = static_cast<long long>(fill.sms) * fill.per_sm;
+  c->grid = num_chunks < cap ? num_chunks : cap;
+  return cudaSuccess;
+}
+
+// The launch of one call: the instance of the key's width; ROW_WARPS warps
+// of row threads and the look-back warp a block; two buffers of rows and
+// STAGES slots of staged partials in dynamic shared memory.
+static cudaError_t config(long long n, int tile, int key_bytes, LaunchConfig* c) {
+  if (tile < 1 || tile > 1024 || n < 1) return cudaErrorInvalidValue;
   const int chunk_rows = CHUNK / tile * tile;
-  if (chunk_rows == 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long num_chunks = (n + chunk_rows - 1) / chunk_rows;
-  cudaError_t err =
-      cudaMemsetAsync(state, 0, state_words(n, chunk_rows) * sizeof(long long), stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  auto kernel = segsum_partials_kernel<K>;
-  static long long cache[MAX_DEVICES] = {};
-  long long fill = 0;
-  err = grid_fill(kernel, THREADS, smem_bytes<K>(), cache, &fill);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(num_chunks < fill ? num_chunks : fill), THREADS, smem_bytes<K>(),
-           stream>>>(static_cast<const K*>(keys), static_cast<const float*>(vals), n, tile,
-                     chunk_rows, num_chunks, static_cast<K*>(pk), static_cast<float*>(ps),
-                     static_cast<int*>(pc), static_cast<unsigned long long*>(state));
-  return launch_status();
+  c->instance = key_bytes == 8;
+  c->threads = THREADS;
+  return c->instance ? grid_config<long long>(num_chunks, c) : grid_config<int>(num_chunks, c);
+}
+
+extern "C" int segsum_partials_launch_config(long long n, int tile, int key_bytes, int device,
+                                             long long* out) {
+  DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
+  LaunchConfig c;
+  const cudaError_t err = config(n, tile, key_bytes, &c);
+  put_config(c, out);
+  return static_cast<int>(err);
 }
 
 // The int64 words of scratch `segsum_partials` needs for n rows in tiles of
@@ -496,8 +519,24 @@ extern "C" int segsum_partials(const void* keys, const void* vals, long long n, 
                                void* stream, int device) {
   DeviceScope scope(device);
   if (scope.status() != 0) return scope.status();
-  if (tile < 1 || tile > 1024 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  LaunchConfig c;
+  cudaError_t err = config(n, tile, key_bytes, &c);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (key_bytes == 8) return launch<long long>(keys, vals, n, tile, pk, ps, pc, state, st);
-  return launch<int>(keys, vals, n, tile, pk, ps, pc, state, st);
+  const int chunk_rows = CHUNK / tile * tile;
+  const long long num_chunks = (n + chunk_rows - 1) / chunk_rows;
+  err = cudaMemsetAsync(state, 0, state_words(n, chunk_rows) * sizeof(long long), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (c.instance) {
+    segsum_partials_kernel<long long><<<static_cast<unsigned>(c.grid), c.threads, c.smem, st>>>(
+        static_cast<const long long*>(keys), static_cast<const float*>(vals), n, tile,
+        chunk_rows, num_chunks, static_cast<long long*>(pk), static_cast<float*>(ps),
+        static_cast<int*>(pc), static_cast<unsigned long long*>(state));
+  } else {
+    segsum_partials_kernel<int><<<static_cast<unsigned>(c.grid), c.threads, c.smem, st>>>(
+        static_cast<const int*>(keys), static_cast<const float*>(vals), n, tile, chunk_rows,
+        num_chunks, static_cast<int*>(pk), static_cast<float*>(ps), static_cast<int*>(pc),
+        static_cast<unsigned long long*>(state));
+  }
+  return launch_status();
 }

@@ -46,8 +46,30 @@ SIGNATURES = {
     "histogram": {"histogram": (_P, _L, _I, _P, _P, _I)},
 }
 
+# argtypes of each library's `<name>_launch_config`: the launch's own
+# arguments that decide its configuration (pointers only for their
+# alignment), then the card and room for six int64s (`kernel_lint.CONFIG`)
+LAUNCH_CONFIG_ARGS = {
+    "block_histograms": (_P, _L, _I, _I),
+    "partition_ranks": (_L, _I, _I),
+    "hash_probe": (_I, _I),
+    "clustered_gather": (_P, _L, _I, _P),
+    "probe_agg": (_L, _I, _I, _I, _I, _I, _I),
+    "segsum_partials": (_L, _I, _I),
+    "lower_bound": (_L, _I),
+    "histogram": (_P, _L, _I),
+}
+for _name, _args in LAUNCH_CONFIG_ARGS.items():
+    SIGNATURES[_name] |= {
+        f"{_name}_launch_config": (*_args, _I, _P),
+        # instance, card, room for six int64s (`kernel_lint.ATTRIBUTES`)
+        f"{_name}_func_attributes": (_I, _I, _P),
+        f"{_name}_instance_name": (_I,),
+    }
+
 # entry points that return something other than an error code
-RESTYPES = {"segsum_partials_state_words": ctypes.c_longlong}
+RESTYPES = {"segsum_partials_state_words": ctypes.c_longlong,
+            **{f"{n}_instance_name": ctypes.c_char_p for n in LAUNCH_CONFIG_ARGS}}
 
 _libs: dict[str, ctypes.CDLL] = {}
 

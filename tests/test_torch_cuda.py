@@ -1551,3 +1551,39 @@ def test_pipeline_steps_on_card_repeat_bit_for_bit(dev):
         runs.append((rec, [t.cpu() for t in leaves(params, torch.is_tensor)]))
     assert all(torch.equal(a[0], b[0]) and a[1] == b[1] for a, b in zip(runs[0][0], runs[1][0]))
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+def test_declared_launches_equal_the_c_side_and_spills_are_declared(dev):
+    """The launch-configuration lint on the card: at every registered shape
+    the declared launch equals what each library's `<name>_launch_config`
+    (its launch's own host helper) gives, and every compiled instance of the
+    eight kernels fits its block and spills no more than DECLARED_SPILLS
+    gives it (nothing, where it names no spill)."""
+    from repro_torch.analysis import kernel_lint as kl
+
+    reports = kl.lint_production_kernels(dev)
+    launched = [r for r in reports if r.launched]
+    assert {r.instance for r in launched} == {i for k in kl.KERNELS for i in kl.INSTANCES[k]}
+    for r in launched:
+        assert r.c_config is not None and r.c_config["instance"] == r.instance, r.name
+        assert r.spill_bytes <= r.declared_spill_bytes and r.registers > 0, \
+            (r.name, r.spill_bytes, r.declared_spill_bytes, r.registers)
+    assert not [(r.name, r.violations) for r in reports if r.violations]
+
+
+def test_launch_config_entries_agree_with_real_tensors(dev):
+    """The C side's configuration at a call's real pointers (a view off its
+    16-byte boundary picks the other instance) is the declaration's at the
+    same alignment."""
+    from repro_torch.analysis import kernel_lint as kl
+
+    d = torch.zeros(100_003, dtype=torch.int32, device=dev)
+    for view in (d, d[1:]):
+        args = {"n": view.shape[0], "num_bins": 256, "addr": view.data_ptr()}
+        c = kl.c_launch_config("block_histograms", args, dev.index or 0)
+        mine = kl.declare("block_histograms", args, c["sms"], lambda *_: c["per_sm"])
+        assert (mine.instance, mine.threads, mine.smem, mine.grid[0]) == \
+            (c["instance"], c["threads"], c["smem"], c["grid"])
+        h = kl.c_launch_config("histogram", args, dev.index or 0)
+        mine = kl.declare("histogram", args, h["sms"])
+        assert (mine.instance, mine.smem, mine.grid[0]) == (h["instance"], h["smem"], h["grid"])

@@ -1,5 +1,7 @@
-"""The PyTorch port stands alone: neither the package, nor its examples
-(examples/*_torch.py), nor chip_smoke.py imports JAX or the JAX package."""
+"""The PyTorch port stands alone: neither the package (its kernel lint
+included), nor its examples (examples/*_torch.py: the quickstart, the
+relational analytics, the pipeline and the LM twins), nor chip_smoke.py
+imports JAX or the JAX package."""
 import ast
 import os
 import subprocess
@@ -45,6 +47,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "import repro_torch.obs.residuals, repro_torch.obs.trace, repro_torch.obs.__main__\n"
             "import repro_torch.analysis, repro_torch.analysis.dispatch_audit\n"
             "import repro_torch.analysis.contracts, repro_torch.analysis.__main__\n"
+            "import repro_torch.analysis.kernel_lint\n"
             "import repro_torch.serve, repro_torch.serve.query, repro_torch.serve.chaos\n"
             "import repro_torch.serve.__main__, repro_torch.resilience.__main__\n"
             "import repro_torch.configs, repro_torch.configs.base\n"
