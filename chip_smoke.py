@@ -220,6 +220,23 @@
    own): each exits 0, the card's run launches the join kernels and the
    CPU's none, and both print the same lines with the same integers (the
    quickstart's float32 revenue within sqrt(rows) x 2^-24 relative).
+15. (aa) The distributed layer (`repro_torch.dist`, the step builders on
+   a mesh, `train.elastic`, `launch.dryrun`): (v)'s cell trained 3 steps by
+   `build_train_step` on a (1, 1) ("data", "model") DeviceMesh over a
+   one-rank NCCL group (an in-process store, no network), against 3
+   one-card steps from the same seed-0 state: losses within 1e-5 relative,
+   every parameter leaf within 5e-3 (and whether bit-identical), 8
+   launches of each routing kernel a step (its MoE groups planned on the
+   rank's local tensors); the step medians side by side.
+   `compressed_psum_dp` over that group on one loss's float32 gradients:
+   bit-equal to `ef_compress_decompress`, each leaf within one int8 step
+   of its input, ms a call beside its bytes bound. `reshard_state` onto the
+   mesh and back to plain tensors, bit for bit. The dry run
+   (`python -m repro_torch.launch.dryrun`, a fake process group of 256
+   ranks, meta tensors) of qwen2-moe-a2.7b train_4k and mixtral-8x7b
+   decode_32k on the 16 x 16 mesh, each in a subprocess of its own started
+   at the phase's start: status ok with collectives counted; live GB per
+   rank beside the card's memory, the dominant roofline term, seconds.
 Every phase prints its seconds; the card's name and power limit stand in
 the JSON line of every new number.
 
@@ -324,6 +341,13 @@ TRAIN_KERNEL_GROUPS = {"matmuls": LM_KERNEL_GROUPS["matmuls"],
                        "gathers, scatters and copies": LM_KERNEL_GROUPS[
                            "gathers, scatters and copies"],
                        "elementwise": ("elementwise",)}
+# the distributed layer's cell (aa): (v)'s cell, 3 steps of the sharded
+# step on a (1, 1) ("data", "model") DeviceMesh over a one-rank NCCL group,
+# against 3 one-card steps from the same state: losses within 1e-5
+# relative, every parameter leaf within the JAX package's bound of 5e-3;
+# then the dry run's two cells on the 16 x 16 mesh of a fake process group
+DIST_STEPS, DIST_LOSS_RTOL, DIST_PARAM_TOL = 3, 1e-5, 5e-3
+DRYRUN_CELLS = (("qwen2-moe-a2.7b", "train_4k"), ("mixtral-8x7b", "decode_32k"))
 # the hybrid's cell: zamba2-2.7b at its published widths and depth in bf16,
 # served as (u) serves (16 requests over 8 slots, a 128-token cache)
 HYB_ARCH, HYB_PARAMS = "zamba2-2.7b", 2_422_532_000
@@ -1640,6 +1664,211 @@ def family_phase(torch, card, profile_run) -> None:
         one = (cfg.replace(num_layers=cfg.cross_attn_every) if cfg.family == "vlm"
                else cfg.replace(num_layers=1, encoder_layers=1))
         _card_against_cpu(torch, one, card, cut)
+
+
+def dist_phase(torch, card) -> None:
+    """(aa) The distributed layer on the card: (v)'s cell trained for 3
+    steps by the sharded step on a (1, 1) DeviceMesh of a one-rank NCCL
+    group, against 3 one-card steps from the same seed-0 state (losses,
+    every parameter leaf, the routing kernels' launches); the int8
+    error-feedback all-reduce over that group on one loss's gradients,
+    bit for bit against `ef_compress_decompress`; `reshard_state` onto the
+    mesh and back, bit for bit; the dry run's two cells on the 16 x 16
+    mesh of a fake process group, each in a subprocess of its own."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.dist import collectives as COL
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as LM
+    from repro_torch.models.params import leaves, map_leaves
+    from repro_torch.train import elastic
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    from repro_torch.train.step import build_train_step
+
+    dev = "cuda"
+    t_phase = time.perf_counter()
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def tensors(tree):
+        return leaves(tree, torch.is_tensor)
+
+    # the dry run's cells start first: they need the CPU alone, and run
+    # while the card trains
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    dry = []
+    for arch, shape in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--mesh", "single", "--out", str(out_dir)]
+        dry.append((arch, shape, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+            cwd=out_dir)))
+
+    free()
+    cfg = get_config(LM_ARCH).replace(num_layers=TRAIN_LAYERS)
+    data = make_batch_fn(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0, cfg=cfg, device=dev)
+    routing = ("block_histograms", "partition_ranks")
+
+    def run(mesh, rules):
+        """DIST_STEPS steps from the seed-0 weights; per step the loss, the
+        host ms from a synchronize to the loss on the host, the launches."""
+        params = LM.init_params(cfg, torch.Generator(dev).manual_seed(0), torch.float32, dev)
+        opt = AdamW(lr=cosine_schedule(TRAIN_PEAK_LR, warmup=TRAIN_WARMUP, total=DIST_STEPS),
+                    clip_norm=1.0)
+        state = opt.init(params)
+        step, psh, _ = build_train_step(cfg, mesh, rules, opt, remat=True)
+        rec = []
+        for i in range(DIST_STEPS):
+            torch.cuda.synchronize()
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, data(i))
+            loss = float(m["loss"])
+            rec.append({"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                        "launches": {k: v - before[k] for k, v in ops.launch_counts().items()}})
+        return params, state, psh, rec
+
+    # one card: the final parameters wait on the host
+    p1, _s1, _, rec1 = run(None, None)
+    final1 = [t.cpu() for t in tensors(p1)]
+    del p1, _s1
+    free()
+
+    # the same steps on a (1, 1) mesh of a one-rank NCCL group
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        rules = SH.default_rules()
+        ops.reset_launch_counts()
+        p2, s2, psh, rec2 = run(mesh, rules)
+        check(all(SH.is_dtensor(t) for t in tensors(p2)),
+              "sharded step: a parameter came back as a plain tensor")
+        check(psh is not None, "sharded step: the builder returned no parameter shardings")
+        per_step = {k: 2 * cfg.num_layers if k in routing else 0 for k in ops.launch_counts()}
+        for i, r in enumerate(rec2):
+            check(r["launches"] == per_step, f"sharded step {i}: launches {r['launches']}, "
+                  f"expected {2 * cfg.num_layers} of each routing kernel and nothing else")
+        loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(rec2, rec1))
+        check(loss_err <= DIST_LOSS_RTOL, f"sharded step: losses {[r['loss'] for r in rec2]} "
+              f"against one card's {[r['loss'] for r in rec1]}")
+        leaf_err, identical = 0.0, True
+        sums = []
+        for a, b in zip(final1, tensors(p2)):
+            loc = SH.local(b)
+            leaf_err = max(leaf_err, float((loc - a.to(dev)).abs().max()))
+            identical = identical and torch.equal(loc.cpu(), a)
+            sums.append((float(loc.double().sum()), float(loc.abs().max())))
+        check(leaf_err <= DIST_PARAM_TOL, f"sharded step: a parameter leaf differs by {leaf_err}")
+        med1 = float(np.median([r["ms"] for r in rec1[1:]]))
+        med2 = float(np.median([r["ms"] for r in rec2[1:]]))
+        info = {"card": card, "arch": LM_ARCH, "layers": cfg.num_layers, "mesh": [1, 1],
+                "steps": DIST_STEPS, "losses": [r["loss"] for r in rec2],
+                "one_card_losses": [r["loss"] for r in rec1], "loss_rel_err": loss_err,
+                "param_max_abs_err": leaf_err, "params_bit_identical": identical,
+                "param_checksums_f64_sum_and_amax": sums[:4],
+                "step_ms": [r["ms"] for r in rec2], "one_card_step_ms": [r["ms"] for r in rec1],
+                "step_ms_median": med2, "one_card_step_ms_median": med1,
+                "launches_per_step": {k: per_step[k] for k in routing}}
+        log(json.dumps({"dist_train_step": info}))
+        log(f"(aa) sharded step on a (1, 1) mesh (one-rank NCCL): {LM_ARCH} at "
+            f"{cfg.num_layers} layers, {DIST_STEPS} steps, losses within {loss_err:.2e} "
+            f"relative of one card's, parameters within {leaf_err:.2e} (bit-identical: "
+            f"{identical}); step median {med2:.3f} ms against one card's {med1:.3f} ms; "
+            f"{2 * cfg.num_layers} launches of each routing kernel a step ({card})")
+        del final1
+
+        # elastic: the state onto the mesh again and back to plain tensors
+        before = [SH.local(t) for t in tensors(p2)] + [SH.local(t) for t in tensors(s2.mu)]
+        p3, s3 = elastic.reshard_state(cfg, p2, s2, mesh)
+        p4, s4 = elastic.reshard_state(cfg, p3, s3, None)
+        after = tensors(p4) + tensors(s4.mu)
+        check(not any(SH.is_dtensor(t) for t in after), "reshard: a leaf is still a DTensor")
+        check(all(torch.equal(a, b) for a, b in zip(before, after)) and
+              int(s4.step) == DIST_STEPS, "reshard: the round trip changed the state")
+        log(f"(aa) reshard_state onto the (1, 1) mesh and back to plain tensors: "
+            f"{len(after)} leaves bit-equal, step {int(s4.step)} ({card})")
+        del p2, s2, p3, s3, before, after
+        p_plain = p4
+        del p4, s4
+        free()
+
+        # the int8 EF all-reduce on one loss's float32 gradients
+        ps = [t.detach().requires_grad_() for t in tensors(p_plain)]
+        it = iter(ps)
+        tree = map_leaves(lambda _: next(it), p_plain, is_leaf=torch.is_tensor)
+        loss, _m = LM.loss_fn(cfg, tree, data(0), remat=True)
+        grads = list(torch.autograd.grad(loss, ps))
+        del p_plain, ps, tree, loss, _m
+        free()
+        ef = COL.init_ef_state(grads)
+        n_params = sum(g.numel() for g in grads)
+        ms = cuda_ms(torch, lambda: COL.compressed_psum_dp(grads, ef, mesh, axis="data"),
+                     reps=5, warmup=1)
+        # each gradient and residual read once, the mean and the new residual written
+        bound = 16 * n_params / HBM_BYTES_PER_S * 1e3
+        worst, equal = 0.0, True
+        for g, e in zip(grads, ef.error):
+            got, gef = COL.compressed_psum_dp([g], COL.EFState([e]), mesh, axis="data")
+            want, wef = COL.ef_compress_decompress([g], COL.EFState([e]))
+            equal = equal and torch.equal(got[0], want[0]) and torch.equal(gef.error[0],
+                                                                           wef.error[0])
+            step_ = float(g.abs().max()) / 127
+            worst = max(worst, float((got[0] - g).abs().max()) / max(step_, 1e-30))
+            del got, gef, want, wef
+        check(equal, "compressed all-reduce: differs from ef_compress_decompress")
+        check(worst <= 1.0, f"compressed all-reduce: a leaf is {worst} int8 steps off its input")
+        log(json.dumps({"dist_compressed_psum": {
+            "card": card, "params": n_params, "leaves": len(grads), "ms": ms,
+            "bound_ms": bound, "bound_by": "bytes", "bit_equal_to_ef": equal,
+            "max_err_in_int8_steps": worst}}))
+        log(f"(aa) compressed_psum_dp over the one-rank group on {n_params} float32 "
+            f"gradients: bit-equal to ef_compress_decompress, within {worst:.3f} int8 steps; "
+            f"{ms:.3f} ms a call against a {bound:.3f} ms bound ({card})")
+        del grads, ef
+        free()
+    finally:
+        dist.destroy_process_group()
+
+    for arch, shape, t0, proc in dry:
+        try:
+            out, _ = proc.communicate(timeout=max(10.0, 240 - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            fail(f"dry run {arch} {shape}: no end within 240 s: {out[-3000:]}")
+        secs = time.perf_counter() - t0
+        recs = list(out_dir.glob(f"{arch}__{shape}__single.json"))
+        check(proc.returncode == 0 and len(recs) == 1,
+              f"dry run {arch} {shape}: exit {proc.returncode}: {out[-3000:]}")
+        rec = json.loads(recs[0].read_text())
+        ncoll = sum(rec.get("collectives", {}).get("counts", {}).values())
+        check(rec["status"] == "ok" and ncoll > 0,
+              f"dry run {arch} {shape}: {rec['status']} {rec.get('error', '')} "
+              f"{rec.get('traceback', '')[-1500:]}")
+        mem = rec["memory"]
+        log(json.dumps({"dryrun": {"card": card, "arch": arch, "shape": shape,
+                                   "mesh": rec["mesh"], "chips": rec["chips"],
+                                   "wall_s": secs, "trace_s": rec["trace_s"], "memory": mem,
+                                   "card_total_memory": torch.cuda.get_device_properties(
+                                       0).total_memory,
+                                   "collectives": rec["collectives"],
+                                   "flops_per_device": rec["cost_analysis"]["flops_per_device"],
+                                   "roofline": rec["roofline"]}}))
+        log(f"(aa) dry run {arch} {shape} on {rec['mesh']} ({rec['chips']} ranks of a fake "
+            f"group): ok, {ncoll} collectives, {mem['live_bytes_per_device'] / 1e9:.3f} GB live "
+            f"per rank against the card's "
+            f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.3f} GB, dominant "
+            f"{rec['roofline']['dominant']}, {secs:.1f} s ({card})")
+    log(f"(aa) {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -3013,6 +3242,9 @@ def main() -> None:
 
     lint_phase(torch, card)
     clock.done("14z launch-configuration lint and example twins")
+
+    dist_phase(torch, card)
+    clock.done("15aa distributed layer")
 
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

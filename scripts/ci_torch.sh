@@ -9,7 +9,7 @@
 #
 # Arguments go to pytest as in ci.sh; when one of them names tests, it
 # replaces the default selection. The CLIs write their artifacts
-# (ANALYSIS.json, TRACE.json, CALIBRATION.json, RESILIENCE_SMOKE.json,
+# (ANALYSIS.json, dryrun/, TRACE.json, CALIBRATION.json, RESILIENCE_SMOKE.json,
 # BENCH_serve_torch.json) into $CI_TORCH_OUT (default build/ci_torch), and
 # the calibration store lives there unless REPRO_CALIBRATION_PATH names
 # another.
@@ -47,6 +47,19 @@ assert rep["summary"]["violations"] == 0, rep["summary"]
 assert rep["operators"] and rep["kernels"] and rep["engine"]
 PY
 echo "ci_torch: repro_torch.analysis contract sweep OK (ANALYSIS.json, 0 violations)"
+
+# Dry-run gate: the sharded train step of the reduced olmo-1b traced on a
+# (2, 4) mesh of a fake process group (repro_torch.launch.dryrun, its own
+# process), status ok with collectives counted.
+python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k --mesh single \
+    --reduced --out dryrun > /dev/null
+python - <<'PY'
+import json
+rec = json.load(open("dryrun/olmo-1b__train_4k__single.json"))
+assert rec["status"] == "ok", (rec["status"], rec.get("error"))
+assert sum(rec["collectives"]["counts"].values()) > 0, rec["collectives"]
+PY
+echo "ci_torch: dry run OK (dryrun/olmo-1b__train_4k__single.json, status ok)"
 
 # Observability smoke: every trace node carries predicted + measured +
 # residual, and the calibration store holds a device profile and non-empty

@@ -144,30 +144,24 @@ def _deliberate() -> bool:
     return False
 
 
-class _Auditor(TorchDispatchMode):
-    """The dispatch mode behind `audit_fn`: counts ops outside the kernel
-    marks and tracks the storages every op creates."""
+class LiveStorageMode(TorchDispatchMode):
+    """A dispatch mode that keeps the watermark of live storage: every
+    storage an op creates is live until the last reference to it dies (a
+    finalizer on the storage); views and in-place ops add nothing. `peak`
+    is the most bytes live at once (`peak_at` the op that reached it),
+    counting the inputs' storages from the start. Subclasses call
+    `_watermark` with each op's outputs."""
 
-    def __init__(self, inputs, device, workspace: bool):
+    def __init__(self, inputs=()):
         super().__init__()
-        self.counts = dict.fromkeys(
-            ("sorts", "gathers", "scatters", "scatter_adds", "float_scatter_adds",
-             "all_to_alls", "kernel_calls"), 0)
-        self.promotions: list[str] = []
         self.live: dict[int, int] = {}  # id(storage) -> bytes
         self.finalizers: list = []
         self.live_bytes = 0
-        self.depth = 0  # nesting of kernel marks
-        self.launch0 = None
-        self.launches: dict[str, int] = {}
-        self.device = device
-        self.workspace = workspace and device.type == "cuda"
         for t in inputs:
             self._track(t)
         self.arg_bytes = self.live_bytes
         self.peak, self.peak_at = self.live_bytes, "<args>"
 
-    # -- liveness ------------------------------------------------------------
     def _track(self, t: torch.Tensor) -> int:
         """Start tracking `t`'s storage; the bytes it adds (0 when the storage
         is already live: a view, an in-place op, an input)."""
@@ -184,10 +178,36 @@ class _Auditor(TorchDispatchMode):
     def _drop(self, key: int) -> None:
         self.live_bytes -= self.live.pop(key, 0)
 
+    def _watermark(self, name: str, outs, extra: int = 0) -> int:
+        """Track `outs`' storages; raise the peak to what is live now (plus
+        `extra`: an op's own workspace). Returns the live bytes counted."""
+        live_before = self.live_bytes
+        here = max(live_before + sum(self._track(t) for t in outs), live_before + extra)
+        if here > self.peak:
+            self.peak, self.peak_at = here, name
+        return here
+
     def close(self) -> None:
         for f in self.finalizers:
             f.detach()
         self.finalizers.clear()
+
+
+class _Auditor(LiveStorageMode):
+    """The dispatch mode behind `audit_fn`: counts ops outside the kernel
+    marks and tracks the storages every op creates."""
+
+    def __init__(self, inputs, device, workspace: bool):
+        self.counts = dict.fromkeys(
+            ("sorts", "gathers", "scatters", "scatter_adds", "float_scatter_adds",
+             "all_to_alls", "kernel_calls"), 0)
+        self.promotions: list[str] = []
+        self.depth = 0  # nesting of kernel marks
+        self.launch0 = None
+        self.launches: dict[str, int] = {}
+        self.device = device
+        self.workspace = workspace and device.type == "cuda"
+        super().__init__(inputs)
 
     # -- kernel marks --------------------------------------------------------
     def kernel_enter(self, name: str) -> None:
@@ -216,15 +236,11 @@ class _Auditor(TorchDispatchMode):
         outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
         if self.depth == 0:
             self._count(name, func, args, kwargs, outs)
-        live_before = self.live_bytes
-        new = sum(self._track(t) for t in outs)
-        here = live_before + new
-        if self.workspace:
-            # the op's own peak: what it held beyond the live storages, its
-            # outputs and any workspace it freed before returning
-            here = max(here, live_before + torch.cuda.max_memory_allocated(self.device) - before)
-        if here > self.peak:
-            self.peak, self.peak_at = here, name
+        # the op's own peak: what it held beyond the live storages, its
+        # outputs and any workspace it freed before returning
+        extra = (torch.cuda.max_memory_allocated(self.device) - before
+                 if self.workspace else 0)
+        self._watermark(name, outs, extra)
         return out
 
     def _count(self, name, func, args, kwargs, outs) -> None:

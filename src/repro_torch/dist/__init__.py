@@ -1,4 +1,11 @@
-"""Distribution substrate of the port. So far only the logical-axis rule
-tables and the mesh context (`sharding`); the compressed collectives and the
-pipeline wait for ROADMAP Queue 1's `dist/` item."""
-from . import sharding  # noqa: F401
+"""Distribution substrate of the port: logical-axis sharding rules and
+DTensor placements on a DeviceMesh, compressed collectives, and pipeline
+parallelism.
+
+  sharding     ShardingRules (logical->mesh axis tables), NamedSharding and
+               the placements of a spec, the mesh context, and shard_act
+               activation constraints.
+  collectives  int8-quantized DP all-reduce with error feedback.
+  pipeline     GPipe-style microbatch pipeline over a mesh axis.
+"""
+from . import collectives, pipeline, sharding  # noqa: F401

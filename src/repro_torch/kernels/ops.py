@@ -108,7 +108,11 @@ def _partition_plan_torch(digits, num_partitions, carry):
     digits = digits.to(torch.int32)
     perm = torch.sort(digits, stable=True).indices.to(torch.int32)
     carried = tuple(c[perm] for c in carry)
-    sizes = torch.bincount(digits, minlength=num_partitions)[:num_partitions].to(torch.int32)
+    # a count of static size (bincount's output size depends on the data,
+    # which a trace without values cannot know); digits lie in
+    # [0, num_partitions), and integer counts add exactly in any order
+    sizes = torch.zeros(num_partitions, dtype=torch.int32, device=digits.device).index_add_(
+        0, digits.long(), torch.ones_like(digits))
     offsets = torch.cumsum(sizes, 0, dtype=torch.int32) - sizes
     return perm, carried, offsets, sizes
 

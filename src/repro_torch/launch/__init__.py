@@ -1,3 +1,3 @@
-"""Launchers of the port: serving (`serve`) and training (`train`); the
-dry-run, mesh and roofline launchers wait for ROADMAP Queue 1's `launch/`
-item."""
+"""Launchers of the port: serving (`serve`), training (`train`), the device
+meshes (`mesh`), the multi-pod dry run on a fake process group (`dryrun`),
+its roofline terms (`roofline`) and report tables (`report`)."""

@@ -3,7 +3,7 @@
 Functional style: parameters are plain trees declared by `*_tmpl` template
 functions (see params.py) and consumed by `apply_*` functions. Activation
 sharding is constrained through repro_torch.dist.sharding.shard_act (the
-identity outside a mesh context).
+identity outside a mesh context; on a mesh the tensors are DTensors).
 
 Attention is plain torch ops in the JAX package's order: scores in float32,
 masked with -1e30, a float32 softmax, and the weights cast back to the
@@ -21,8 +21,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..dist.sharding import shard_act
-from .params import P
+from ..dist.sharding import (constrain, current_ctx, is_dtensor, local_map, mesh_shape,
+                             placements_of, replicated, shard_act)
+from .params import P, axis_spec
 
 
 # ---------------------------------------------------------------------------
@@ -101,6 +102,29 @@ def _sdpa(q, k, v, mask, n_rep: int):
     return out.reshape(b, sq, h, hd)
 
 
+def _attention(fn, q, k, v, *batched, **kw):
+    """fn(q, k, v, *batched, **kw): an attention over q (b, sq, h, hd) and
+    k/v (b, sk, kv, hd), `batched` tensors (a mask, positions) leading with
+    the batch dim (or 1). On a mesh each rank attends over its own batch
+    rows and heads (`local_map`): attention is independent per sequence and
+    per head, so the head-parallel split needs no communication. The heads
+    stay whole where q's heads and k/v's kv_heads cannot split alike."""
+    if not is_dtensor(q):
+        return fn(q, k, v, *batched, **kw)
+    mesh, rules = current_ctx()
+    sizes = mesh_shape(mesh)
+    b = q.shape[0]
+    qs = axis_spec(q.shape, ("batch", None, "heads", None), rules.act, sizes)
+    ks = axis_spec(k.shape, ("batch", None, "kv_heads", None), rules.act, sizes)
+    if qs[2] != ks[2]:
+        qs = ks = (qs[0], None, None, None)
+    extra = [(qs[0] if t.shape[0] == b else None,) + (None,) * (t.dim() - 1) for t in batched]
+    pq, pk = placements_of(qs, mesh), placements_of(ks, mesh)
+    attend = local_map(lambda *a: (fn(*a, **kw),), out_placements=(pq,),
+                       in_placements=(pq, pk, pk) + tuple(placements_of(e, mesh) for e in extra))
+    return attend(q, k, v, *(replicated(t, mesh) for t in batched))[0]
+
+
 BLOCKWISE_SEQ_THRESHOLD = 2048  # above this, use online-softmax chunking
 BLOCKWISE_KV_CHUNK = 1024
 
@@ -152,10 +176,42 @@ def _blockwise_sdpa(q, k, v, positions, *, n_rep, causal, window,
     return out.to(q.dtype)
 
 
+def contract(eq: str, x, w, n_in: int, out_axes: tuple):
+    """torch.einsum(eq, x, w) where x's last `n_in` dims contract with w's
+    first `n_in`. On a mesh: one matmul of the flattened leading,
+    contracted and output dims, its output constrained to the logical
+    `out_axes` (one per output dim) before it unflattens. DTensor's own
+    einsum may split a flattened dim where its parts cannot split (heads
+    that do not divide the model axis), or reach a strided placement whose
+    propagation costs seconds an op on a 3-D mesh."""
+    if not (is_dtensor(x) or is_dtensor(w)):
+        return torch.einsum(eq, x, w)
+    lead, inner, tail = x.shape[:-n_in], w.shape[:n_in], w.shape[n_in:]
+    mesh, rules = current_ctx()
+    spec = axis_spec(tuple(lead) + tuple(tail), out_axes, rules.act, mesh_shape(mesh))
+
+    def merged(sp):  # a flattened dim keeps its outermost part's sharding alone
+        return sp[0] if all(a is None for a in sp[1:]) else None
+
+    y = x.reshape(math.prod(lead), math.prod(inner)) @ w.reshape(math.prod(inner),
+                                                                 math.prod(tail))
+    y = constrain(y, (merged(spec[:len(lead)]), merged(spec[len(lead):])))
+    return y.reshape(tuple(lead) + tuple(tail))
+
+
+def proj_heads(x, w, head_axis: str = "heads"):
+    """einsum("bsd,dhk->bshk", x, w): a projection into heads."""
+    return contract("bsd,dhk->bshk", x, w, 1, ("batch", None, head_axis, None))
+
+
+def proj_out(x, w):
+    """einsum("bshk,hkd->bsd", x, w): the heads' output projection."""
+    return contract("bshk,hkd->bsd", x, w, 2, ("batch", None, "embed"))
+
+
 def _qkv(p, x):
-    return (torch.einsum("bsd,dhk->bshk", x, p["wq"]),
-            torch.einsum("bsd,dhk->bshk", x, p["wk"]),
-            torch.einsum("bsd,dhk->bshk", x, p["wv"]))
+    return (proj_heads(x, p["wq"]), proj_heads(x, p["wk"], "kv_heads"),
+            proj_heads(x, p["wv"], "kv_heads"))
 
 
 def apply_self_attn(p, x, *, n_kv: int, theta: float, window: int | None = None,
@@ -174,7 +230,8 @@ def apply_self_attn(p, x, *, n_kv: int, theta: float, window: int | None = None,
         q = rope(q, positions, theta)
         k = rope(k, positions, theta)
     if s > BLOCKWISE_SEQ_THRESHOLD:
-        out = _blockwise_sdpa(q, k, v, positions, n_rep=n_rep, causal=causal, window=window)
+        out = _attention(_blockwise_sdpa, q, k, v, positions, n_rep=n_rep, causal=causal,
+                         window=window)
     else:
         qp = positions[:, :, None]
         kp = positions[:, None, :]
@@ -182,8 +239,8 @@ def apply_self_attn(p, x, *, n_kv: int, theta: float, window: int | None = None,
             else (kp <= qp)
         if window is not None:
             mask = mask & (kp > qp - window)
-        out = _sdpa(q, k, v, mask[:, None], n_rep)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        out = _attention(_sdpa, q, k, v, mask[:, None], n_rep=n_rep)
+    y = proj_out(out, p["wo"])
     return shard_act(y, ("batch", "seq", "embed"))
 
 
@@ -192,13 +249,13 @@ def apply_cross_attn(p, x, kv_src, *, n_kv: int):
     (b, t, d) (encoder frames / vision patches). No RoPE, no mask."""
     n_heads = p["wq"].shape[1]
     n_rep = n_heads // n_kv
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("btd,dhk->bthk", kv_src, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", kv_src, p["wv"])
+    q = proj_heads(x, p["wq"])
+    k = proj_heads(kv_src, p["wk"], "kv_heads")
+    v = proj_heads(kv_src, p["wv"], "kv_heads")
     mask = torch.ones((x.shape[0], 1, x.shape[1], kv_src.shape[1]), dtype=torch.bool,
                       device=x.device)
-    out = _sdpa(q, k, v, mask, n_rep)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = _attention(_sdpa, q, k, v, mask, n_rep=n_rep)
+    return proj_out(out, p["wo"])
 
 
 def init_kv_cache(b: int, w: int, n_kv: int, hd: int, dtype, device="cuda"):
@@ -224,23 +281,58 @@ def self_attn_decode_into(p, x, ck, cv, pos, *, n_kv: int, theta: float):
     n_rep = n_heads // n_kv
     W = ck.shape[1]
     q, k, v = _qkv(p, x)
-    # the JAX package pins q, k and v batch-only under a mesh whose model
-    # axis kv_heads does not divide; under any mesh shard_act raises here
-    # (in _sdpa) until dist/ is ported
+    # The decode attention's layout must match the cache's, or every step
+    # regathers the whole KV cache. When kv_heads divides the model axis the
+    # cache is head-sharded and head-parallel attention is free; otherwise
+    # pin everything batch-only (redundant model-axis compute is negligible
+    # at one token a step).
+    ctx = current_ctx()
+    head_parallel = ctx is None or n_kv % mesh_shape(ctx[0]).get("model", 1) == 0
+    if not head_parallel:
+        q = shard_act(q, ("batch", None, None, None))
+        k = shard_act(k, ("batch", None, None, None))
+        v = shard_act(v, ("batch", None, None, None))
     posv = pos_vec[:, None]
     if theta is not None:
         q = rope(q, posv, theta)
         k = rope(k, posv, theta)  # absolute-position RoPE at insert time
     slot = torch.remainder(pos_vec, W).long()  # (b,) per-sequence ring slot
-    bidx = torch.arange(b, device=x.device)
-    ck[bidx, slot] = k[:, 0].to(ck.dtype)
-    cv[bidx, slot] = v[:, 0].to(cv.dtype)
+    if is_dtensor(ck):
+        _cache_write_sharded(ck, cv, k, v, slot)
+    else:
+        _cache_write(ck, cv, k, v, slot)
     # slot i holds timestep t_i = pos - ((pos - i) mod W); valid iff t_i >= 0
     i = torch.arange(W, dtype=torch.int32, device=x.device)
     t_i = pos_vec[:, None] - torch.remainder(pos_vec[:, None] - i[None, :], W)
     mask = (t_i >= 0)[:, None, None, :]
-    out = _sdpa(q, ck, cv, mask, n_rep)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = _attention(_sdpa, q, ck, cv, mask, n_rep=n_rep)
+    if not head_parallel:
+        # keep the AV product batch-sharded too, or wo's head sharding
+        # regathers the V cache
+        out = shard_act(out, ("batch", None, None, None))
+    return proj_out(out, p["wo"])
+
+
+def _cache_write(ck, cv, k, v, slot):
+    """Write each sequence's new key and value (b, 1, kv, hd) into its ring
+    slot of `ck`/`cv` (b, W, kv, hd), in place."""
+    bidx = torch.arange(ck.shape[0], device=ck.device)
+    ck[bidx, slot] = k[:, 0].to(ck.dtype)
+    cv[bidx, slot] = v[:, 0].to(cv.dtype)
+    return ck, cv
+
+
+def _cache_write_sharded(ck, cv, k, v, slot):
+    """`_cache_write` on a mesh: each rank writes its own rows and heads of
+    the cache DTensors in place; k and v take the cache's sharding, the
+    slots its batch sharding."""
+    from torch.distributed.tensor import Replicate
+
+    mesh, pl = ck.device_mesh, tuple(ck.placements)
+    slot_pl = tuple(p if p.is_shard(0) else Replicate() for p in pl)
+    write = local_map(_cache_write, out_placements=(pl, pl),
+                      in_placements=(pl, pl, pl, pl, slot_pl))
+    write(ck, cv, k, v, replicated(slot, mesh))
 
 
 def apply_self_attn_decode(p, x, cache, pos, *, n_kv: int, theta: float):

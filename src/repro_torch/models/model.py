@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ArchConfig
+from ..dist import sharding as SH
 from ..dist.sharding import shard_act
 from . import layers as L
 from . import moe as MOE
@@ -231,8 +232,16 @@ def _encode(cfg: ArchConfig, params, enc_emb, dtype, remat=False):
 def _embed(cfg: ArchConfig, params, tokens):
     # F.embedding's backward on the card sorts the tokens and sums each
     # token's rows in a fixed order: the same bits every run
-    x = F.embedding(tokens.long(), params["embed"]["table"])
+    x = _embed_rows(params["embed"]["table"], tokens.long())
     return shard_act(x, ("batch", "seq", "embed"))
+
+
+def _embed_rows(table, ids):
+    """table[ids]. On a mesh the table is gathered first: DTensor's
+    vocab-parallel lookup cannot take ids sharded over the batch."""
+    if SH.is_dtensor(table):
+        return F.embedding(ids, SH.replicate_all(table))
+    return F.embedding(ids, table)
 
 
 def _logits(cfg: ArchConfig, params, x):
@@ -268,7 +277,8 @@ def _remat(fn, remat):
     if remat == "dots":
         kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
                                              _save_matmuls)
-    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+    # the recompute runs in the backward: under the mesh context of now
+    return functools.partial(ckpt.checkpoint, SH.bind_ctx(fn), use_reentrant=False, **kw)
 
 
 def forward(cfg: ArchConfig, params, batch, *, remat=True):
@@ -309,6 +319,24 @@ def forward(cfg: ArchConfig, params, batch, *, remat=True):
     return _logits(cfg, params, x), aux
 
 
+def _logprob_of(logits, targets):
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return (torch.gather(logp, -1, targets[..., None])[..., 0],)
+
+
+def _target_logprob(logits, targets):
+    """log_softmax(logits)[target] per position, in float32. On a mesh the
+    vocabulary gathers first and each rank takes its own rows
+    (`local_map`): DTensor's gather would build its gradient at the global
+    shape."""
+    if not SH.is_dtensor(logits):
+        return _logprob_of(logits, targets)[0]
+    logits = shard_act(logits, ("batch", "seq", None))
+    pl = tuple(logits.placements)
+    return SH.local_map(_logprob_of, out_placements=(pl,), in_placements=(pl, pl))(
+        logits, targets)[0]
+
+
 def loss_fn(cfg: ArchConfig, params, batch, *, remat=True):
     """Next-token CE. batch['tokens']: (b, s+1). The log-softmax is taken in
     float32."""
@@ -317,9 +345,7 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat=True):
     inp["tokens"] = tokens[:, :-1]
     targets = tokens[:, 1:].long()
     logits, aux = forward(cfg, params, inp, remat=remat)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, targets[..., None])[..., 0]
-    ce = -ll.mean()
+    ce = -_target_logprob(logits, targets).mean()
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -475,10 +501,10 @@ def _cross_decode(cfg, p_attn, x, ck, cv):
     """Cross attention against precomputed K/V."""
     n_heads = p_attn["wq"].shape[1]
     n_rep = n_heads // cfg.num_kv_heads
-    q = torch.einsum("bsd,dhk->bshk", x, p_attn["wq"])
+    q = L.proj_heads(x, p_attn["wq"])
     mask = torch.ones((x.shape[0], 1, 1, ck.shape[1]), dtype=torch.bool, device=x.device)
-    out = L._sdpa(q, ck.to(q.dtype), cv.to(q.dtype), mask, n_rep)
-    return torch.einsum("bshk,hkd->bsd", out, p_attn["wo"])
+    out = L._attention(L._sdpa, q, ck.to(q.dtype), cv.to(q.dtype), mask, n_rep=n_rep)
+    return L.proj_out(out, p_attn["wo"])
 
 
 def _stack_states(states: list):
@@ -497,7 +523,7 @@ def decode_step(cfg: ArchConfig, params, cache, token, pos):
     Returns (logits (b, V), new_cache); `cache` is not written: KV caches
     are copied once and written layer by layer, recurrent states are new
     tensors stacked once, and cross K/V are passed on as they are."""
-    x = params["embed"]["table"][token.long()[:, None]]
+    x = _embed_rows(params["embed"]["table"], token.long()[:, None])
     fam = cfg.family
 
     if fam in ("dense", "moe"):
@@ -568,3 +594,31 @@ def decode_step(cfg: ArchConfig, params, cache, token, pos):
         raise ValueError(fam)
 
     return _logits(cfg, params, x)[:, 0], new_cache
+
+
+# ===========================================================================
+# Dry-run input specs
+# ===========================================================================
+def input_specs(cfg: ArchConfig, shape, *, dtype=torch.bfloat16):
+    """Stand-ins without storage (on the meta device) for every model input
+    of this cell: the batch of a train or prefill cell; for a decode cell
+    the token, the position and the cache."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def empty(shape_, dt):
+        return torch.empty(shape_, dtype=dt, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": empty((b, s + 1) if shape.kind == "train" else (b, s), torch.int32)}
+        if cfg.family == "vlm":
+            batch["vision_emb"] = empty((b, cfg.vision_tokens, cfg.d_model), dtype)
+        if cfg.family == "audio":
+            batch["enc_emb"] = empty((b, cfg.encoder_len, cfg.d_model), dtype)
+        return batch
+    # decode: one new token against a cache of length seq_len
+    return {
+        "token": empty((b,), torch.int32),
+        "pos": torch.zeros((), dtype=torch.int32, device="meta"),
+        "cache": map_leaves(lambda t: empty(t.shape, t.dtype), cache_shapes(cfg, b, s, dtype),
+                            is_leaf=lambda x: isinstance(x, TensorSpec)),
+    }

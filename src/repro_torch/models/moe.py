@@ -27,6 +27,8 @@ gradient of a gather through the plan is a gather through its inverse.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -162,31 +164,66 @@ def _dispatch_sort(p, x2, expert_idx, gates, C: int):
     return y.to(x2.dtype)
 
 
+def _plan_gather_local(xg, eg, *, E: int, C: int):
+    """Plan and dispatch-gather each local token group: xg (G, t, D), eg
+    (G, t, k) -> (xin (G, E, C, D), at (G, t*k), blk_asg (G, E*C)); `at` is
+    each assignment's expert slot (-1: dropped), `blk_asg` each slot's
+    assignment (-1: empty). Plain tensors: under a mesh it runs on each
+    rank's own groups, so the routing kernels see ordinary tensors."""
+    G, t, D = xg.shape
+    k = eg.shape[2]
+    xin, ats, asgs = [], [], []
+    for g in range(G):
+        blk_tok, slot_a, keep_a, blk_asg = _plan_sort(eg[g], E, C)
+        at = torch.where(keep_a, slot_a, -1)
+        xin.append(_PlanGather.apply(xg[g], blk_tok.reshape(-1), at.reshape(t, k)))
+        ats.append(at)
+        asgs.append(blk_asg.reshape(E * C))
+    return (torch.stack(xin).reshape(G, E, C, D), torch.stack(ats), torch.stack(asgs))
+
+
+def _combine_local(out, at, blk_asg):
+    """The combine gather of each local group: out (G, E*C, D) -> ((G, t*k, D),)."""
+    return (torch.stack([_PlanGather.apply(out[g], at[g], blk_asg[g][:, None])
+                         for g in range(out.shape[0])]),)
+
+
 def _dispatch_sort_grouped(p, x2, expert_idx, gates, *, k: int, E: int,
-                           cf: float, groups: int):
+                           cf: float, groups: int, C: int | None = None):
     """Hierarchical GFTR dispatch: tokens split into `groups` shard-local
     blocks (the paper's probe-side sub-partitioning applied to MoE), each
-    planned on its own, the expert matmuls batched over the group dim."""
+    planned on its own, the expert matmuls batched over the group dim.
+
+    Under a mesh the groups are the token shards: each rank plans and
+    gathers its own group on its local tensors (`local_map`), and the
+    expert matmuls run on the mesh. `C` is the capacity of a single group
+    (the no-group path's, a multiple of 512); groups of a split take
+    their own (a multiple of 128)."""
     T, D = x2.shape
     t_loc = T // groups
-    C_loc = _capacity(t_loc, k, E, cf, multiple=128)
+    C_loc = C if groups == 1 and C is not None else _capacity(t_loc, k, E, cf, multiple=128)
+    # each (T, ...) input on the tokens' sharding before it splits into groups
+    x2, expert_idx, gates = (shard_act(x2, ("tokens", "embed")),
+                             shard_act(expert_idx, ("tokens", None)),
+                             shard_act(gates, ("tokens", None)))
     xg = shard_act(x2.reshape(groups, t_loc, D), ("tokens", None, "embed"))
-    eg = expert_idx.reshape(groups, t_loc, k)
-    plans = [_plan_sort(eg[g], E, C_loc) for g in range(groups)]
-    blk = torch.stack([pl[0] for pl in plans])
-    slot_a = torch.stack([pl[1] for pl in plans])
-    keep_a = torch.stack([pl[2] for pl in plans])
-    xin = torch.stack([_gather_rows(xg[g], blk[g].reshape(-1)) for g in range(groups)])
-    xin = shard_act(xin.reshape(groups, E, C_loc, D), ("tokens", None, None, None))
+    eg = shard_act(expert_idx.reshape(groups, t_loc, k), ("tokens", None, None))
+    plan = functools.partial(_plan_gather_local, E=E, C=C_loc)
+    combine = _combine_local
+    if SH.is_dtensor(xg):
+        pl = xg.placements
+        plan = SH.local_map(plan, out_placements=(pl, pl, pl), in_placements=(pl, pl))
+        combine = SH.local_map(combine, out_placements=(pl,), in_placements=(pl, pl, pl))
+    xin, at, blk_asg = plan(xg, eg)
+    xin = shard_act(xin, ("tokens", None, None, None))
     h = F.silu(torch.einsum("gecd,edf->gecf", xin, p["wg"])) * torch.einsum(
         "gecd,edf->gecf", xin, p["wu"])
     h = shard_act(h, ("tokens", None, None, "mlp"))
     out = torch.einsum("gecf,efd->gecd", h, p["wd"])
     out = shard_act(out, ("tokens", None, None, None)).reshape(groups, E * C_loc, D)
-    idx = torch.where(keep_a, slot_a, -1)
-    ya = torch.stack([_gather_rows(out[g], idx[g]) for g in range(groups)])
-    ya = shard_act(ya, ("tokens", None, None))  # (G, t_loc*k, D)
-    gg = gates.reshape(groups, t_loc, k)
+    out = shard_act(out, ("tokens", None, None))
+    ya = shard_act(combine(out, at, blk_asg)[0], ("tokens", None, None))  # (G, t_loc*k, D)
+    gg = shard_act(gates.reshape(groups, t_loc, k), ("tokens", None, None))
     y = (ya.reshape(groups, t_loc, k, D) * gg[..., None]).sum(dim=2)
     y = shard_act(y, ("tokens", None, "embed"))
     return y.reshape(T, D).to(x2.dtype)
@@ -228,7 +265,7 @@ def _num_token_groups(T: int) -> int:
     mesh, rules = ctx
     ax = rules.act.get("tokens")
     if isinstance(ax, tuple):
-        ax = tuple(a for a in ax if a in dict(mesh.shape))
+        ax = tuple(a for a in ax if a in SH.mesh_shape(mesh))
     g = SH._mesh_axis_size(mesh, ax)
     return g if g > 1 and T % g == 0 and T // g >= 8 else 1
 
@@ -236,15 +273,18 @@ def _num_token_groups(T: int) -> int:
 def apply_moe(p, x, moe_cfg):
     """x: (b, s, d). Returns (y, aux_loss)."""
     b, s, d = x.shape
-    x2 = x.reshape(b * s, d)
+    # tokens are sharded over the batch's axes alone: a sequence sharded
+    # over another axis is gathered before (b, s) flattens
+    x2 = shard_act(x, ("batch", None, "embed")).reshape(b * s, d)
     expert_idx, gates, aux = _route(p, x2, moe_cfg.top_k)
     C = _capacity(b * s, moe_cfg.top_k, moe_cfg.num_experts, moe_cfg.capacity_factor)
     if moe_cfg.dispatch == "sort":
         groups = _num_token_groups(b * s)
-        if groups > 1:
+        if groups > 1 or SH.current_ctx() is not None:
+            # under a mesh every group is planned on its rank's local tensors
             y = _dispatch_sort_grouped(p, x2, expert_idx, gates, k=moe_cfg.top_k,
                                        E=moe_cfg.num_experts, cf=moe_cfg.capacity_factor,
-                                       groups=groups)
+                                       groups=groups, C=C)
         else:
             y = _dispatch_sort(p, x2, expert_idx, gates, C)
     elif moe_cfg.dispatch == "einsum":

@@ -9,6 +9,7 @@ A model declares its parameters as a nested dict of `P` leaves, each carrying
     a spec is a plain tuple, one entry per dim: a mesh axis name, a tuple of
     names, or None
   * parameter counts (count_params)
+  * tensors without storage for the dry run (abstract_from_template)
 
 Stacked layers wrap a per-layer template with `stack(tmpl, L)`, which
 prepends a (L,) 'layers' axis — always unsharded.
@@ -101,6 +102,12 @@ def init_from_template(template: Any, generator: torch.Generator, dtype=torch.fl
     The random streams differ from JAX's; `params_from_numpy` carries the
     JAX package's own weights across."""
     return map_leaves(lambda l: _init_leaf(l, generator, dtype, device), template)
+
+
+def abstract_from_template(template: Any, dtype=torch.float32):
+    """The template's leaves as tensors without storage (on the meta
+    device), for the dry run's trace."""
+    return map_leaves(lambda l: torch.empty(l.shape, dtype=dtype, device="meta"), template)
 
 
 def params_from_numpy(tree: Any, *, dtype=None, device="cuda"):

@@ -21,9 +21,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..dist.sharding import shard_act
+from ..dist.sharding import (current_ctx, is_dtensor, local_map, mesh_shape, placements_of,
+                             shard_act)
 from .layers import rms
-from .params import P
+from .params import P, axis_spec
 
 
 def ssm_tmpl(d: int, cfg):
@@ -88,12 +89,40 @@ def apply_ssm(p, x, cfg):
     Q = min(cfg.chunk, s)
     if s % Q:
         raise ValueError(f"seq {s} not divisible by chunk {Q}")
-    nc = s // Q
     dt = F.softplus(dt + p["dt_bias"]).float()  # (b, s, h)
     A = -torch.exp(p["A_log"].float())  # (h,)
     dA = dt * A  # log-decay per step, (b, s, h)
     u = xs.reshape(b, s, nheads, hdim).float() * dt[..., None]
+    y = _scan(dA, u, B, C, Q)
+    xs_h = xs.reshape(b, s, nheads, hdim).float()
+    y = y + p["D"].float()[None, None, :, None] * xs_h
+    y = y.reshape(b, s, inner).to(x.dtype)
+    out = _gated_norm_out(p, y, z)
+    return shard_act(out, ("batch", "seq", "embed"))
 
+
+def _scan(dA, u, B, C, Q: int):
+    """The chunked SSD scan: dA (b, s, h) log decays, u (b, s, h, p) inputs,
+    B and C (b, s, n) -> y (b, s, h, p) float32. On a mesh each rank scans
+    its own sequences (`local_map`, heads whole: the scan is independent
+    per sequence, and B and C are shared by every head)."""
+    if not is_dtensor(u):
+        return _scan_local(dA, u, B, C, Q)
+    mesh, rules = current_ctx()
+    bx = axis_spec(u.shape, ("batch", None, None, None), rules.act, mesh_shape(mesh))[0]
+
+    def pl(t):
+        return placements_of((bx,) + (None,) * (t.dim() - 1), mesh)
+
+    scan = local_map(lambda *a: (_scan_local(*a, Q),), out_placements=(pl(u),),
+                     in_placements=(pl(dA), pl(u), pl(B), pl(C)))
+    return scan(dA, u, B, C)[0]
+
+
+def _scan_local(dA, u, B, C, Q: int):
+    b, s, nheads, hdim = u.shape
+    n = B.shape[-1]
+    nc = s // Q
     # chunked views
     dA_c = dA.reshape(b, nc, Q, nheads)
     u_c = u.reshape(b, nc, Q, nheads, hdim)
@@ -103,7 +132,7 @@ def apply_ssm(p, x, cfg):
 
     # intra-chunk: Y[j] = sum_{i<=j} exp(L_j - L_i) (C_j . B_i) u_i
     seg = L[:, :, :, None, :] - L[:, :, None, :, :]  # (b,nc,j,i,h)
-    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=u.device))
     M = torch.exp(torch.where(tri[None, None, :, :, None], seg, -torch.inf))
     CB = torch.einsum("bcjn,bcin->bcji", C_c, B_c)  # (b,nc,Q,Q)
     W = CB[..., None] * M  # (b,nc,j,i,h)
@@ -119,7 +148,7 @@ def apply_ssm(p, x, cfg):
     # inter-chunk scan: H_{c+1} = exp(L_Q^c) H_c + S_c; H_starts[c] is the
     # state at chunk c's start
     a_chunk = torch.exp(L[:, :, -1, :])  # (b,nc,h)
-    H = torch.zeros((b, nheads, hdim, n), dtype=torch.float32, device=x.device)
+    H = torch.zeros((b, nheads, hdim, n), dtype=torch.float32, device=u.device)
     starts = []
     for c in range(nc):
         starts.append(H)
@@ -129,13 +158,7 @@ def apply_ssm(p, x, cfg):
     # inter contribution: Y[j] += C_j . (exp(L_j) H_start)
     H_starts = shard_act(H_starts, ("batch", None, "heads", None, None))
     y_inter = torch.einsum("bcjn,bcjh,bchpn->bcjhp", C_c, torch.exp(L), H_starts)
-
-    y = (y_intra + y_inter).reshape(b, s, nheads, hdim)
-    xs_h = xs.reshape(b, s, nheads, hdim).float()
-    y = y + p["D"].float()[None, None, :, None] * xs_h
-    y = y.reshape(b, s, inner).to(x.dtype)
-    out = _gated_norm_out(p, y, z)
-    return shard_act(out, ("batch", "seq", "embed"))
+    return (y_intra + y_inter).reshape(b, s, nheads, hdim)
 
 
 def init_ssm_cache(b: int, d: int, cfg, dtype, device="cuda"):

@@ -21,8 +21,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..dist import sharding as SH
 from ..dist.sharding import shard_act
-from .layers import rms
+from .layers import proj_heads, rms
 from .params import P
 
 
@@ -72,9 +73,9 @@ def _mlstm_qkvg(p, x, cfg, d, conv_state=None):
         xc, new_state = _conv_silu(xin, p["conv_w"], p["conv_b"], conv_state)
     # sqrt(dk) rounded to float32 first, then to x's dtype (the JAX order)
     scale = torch.tensor(math.sqrt(dk), dtype=torch.float32).to(x.dtype).to(x.device)
-    q = torch.einsum("bsd,dhk->bshk", xc, p["wq"]) / scale
-    k = torch.einsum("bsd,dhk->bshk", xc, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", xin, p["wv"])
+    q = proj_heads(xc, p["wq"]) / scale
+    k = proj_heads(xc, p["wk"])
+    v = proj_heads(xin, p["wv"])
     g = torch.einsum("bsd,dhg->bshg", xc, p["wgate"]).float() + p["gate_b"].float()
     ipre, fpre = g[..., 0], g[..., 1]
     return q, k, v, ipre, fpre, z, new_state, inner, nh, dk
@@ -96,7 +97,7 @@ def apply_mlstm(p, x, cfg):
 def _apply_mlstm_quadratic(p, x, cfg):
     b, s, d = x.shape
     q, k, v, ipre, fpre, z, _, inner, nh, dk = _mlstm_qkvg(p, x, cfg, d)
-    logf = F.logsigmoid(fpre)  # (b, s, h)
+    logf = SH.pointwise(F.logsigmoid, fpre)  # (b, s, h)
     Fc = torch.cumsum(logf, dim=1)
     Dm = Fc[:, :, None, :] - Fc[:, None, :, :] + ipre[:, None, :, :]  # (b, t, i, h)
     tri = torch.tril(torch.ones((s, s), dtype=torch.bool, device=x.device))[None, :, :, None]
@@ -124,7 +125,7 @@ def _apply_mlstm_chunked(p, x, cfg, Q: int):
     are cut off, but the JAX package's gradient there is 0 * inf (NaN)."""
     b, s, d = x.shape
     q, k, v, ipre, fpre, z, _, inner, nh, dk = _mlstm_qkvg(p, x, cfg, d)
-    logf = F.logsigmoid(fpre)
+    logf = SH.pointwise(F.logsigmoid, fpre)
     C_p = torch.zeros((b, nh, dk, dk), dtype=torch.float32, device=x.device)
     n_p = torch.zeros((b, nh, dk), dtype=torch.float32, device=x.device)
     m_p = torch.full((b, nh), -1e30, dtype=torch.float32, device=x.device)
@@ -187,7 +188,7 @@ def apply_mlstm_decode(p, x, cache, cfg):
         p, x, cfg, d, cache["conv"])
     q, k, v = (t[:, 0].float() for t in (q, k, v))  # (b, h, dk)
     ipre, fpre = ipre[:, 0], fpre[:, 0]  # (b, h)
-    logf = F.logsigmoid(fpre)
+    logf = SH.pointwise(F.logsigmoid, fpre)
     m_new = torch.maximum(logf + cache["m"], ipre)
     fs = torch.exp(logf + cache["m"] - m_new)[..., None]
     is_ = torch.exp(ipre - m_new)[..., None]
@@ -226,7 +227,7 @@ def _slstm_cell(p, xt, state):
     pre = xt + torch.einsum("bhd,hdkf->bhkf", h, p["R"]) + p["b"]
     zt = torch.tanh(pre[..., 0])
     it = pre[..., 1].float()
-    logf = F.logsigmoid(pre[..., 2].float())
+    logf = SH.pointwise(F.logsigmoid, pre[..., 2].float())
     ot = torch.sigmoid(pre[..., 3])
     m_new = torch.maximum(logf + m, it)
     i_s = torch.exp(it - m_new)

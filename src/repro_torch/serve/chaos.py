@@ -34,7 +34,9 @@ and `pallas:` specs fire nowhere (NO_PALLAS_FAMILY).
 After each fault pass the harness asserts the blast radius: failures
 confined to the faulted signature, every untargeted request fast-path and
 oracle-identical (zero contamination), untargeted warm p99 within 2x of
-the fault-free baseline, and the `qserve.*` / `resilience.*` counter
+the fault-free baseline (judged on the card only: on a CPU that other
+processes share, a request's wall time measures its neighbours, so there
+the p99s are recorded and not held to the bound), and the `qserve.*` / `resilience.*` counter
 deltas consistent with the injected faults (a fault family that fires
 nothing is a broken family). A final pressure pass pins the admission
 machinery: exact shed counts at a full queue, exact deadline evictions,
@@ -209,8 +211,10 @@ def run_chaos(queries_per_family: int = 200, seed: int = 0,
               smoke: bool = False, families=FAMILIES, device="cuda") -> dict:
     """The soak on `device` (the card unless the caller asks for another).
     Asking for the JAX package's 'pallas' family raises ValueError: it
-    cannot fire here (NO_PALLAS_FAMILY)."""
+    cannot fire here (NO_PALLAS_FAMILY). The p99 confinement checks judge
+    latency on a CUDA device only (`config.latency_judged`)."""
     families = tuple(families)
+    latency_judged = str(device).startswith("cuda")
     if "pallas" in families:
         raise ValueError(NO_PALLAS_FAMILY)
     unknown = [f for f in families if f not in FAMILY_TARGETS]
@@ -350,7 +354,7 @@ def run_chaos(queries_per_family: int = 200, seed: int = 0,
                                       (99,))["p99"]
             base = base_shape_p99[s]
             confinement[s] = {"p99_s": p99, "baseline_p99_s": base}
-            check(p99 <= max(2 * base, base + 0.010),
+            check(not latency_judged or p99 <= max(2 * base, base + 0.010),
                   f"{family}.p99_blowup.{s}: {p99:.4f}s vs base {base:.4f}s")
 
         family_reports[family] = {
@@ -486,7 +490,7 @@ def run_chaos(queries_per_family: int = 200, seed: int = 0,
                                   (99,))["p99"]
         base = base_shape_p99[s]
         mem_confinement[s] = {"p99_s": p99, "baseline_p99_s": base}
-        check(p99 <= max(2 * base, base + 0.010),
+        check(not latency_judged or p99 <= max(2 * base, base + 0.010),
               f"memory.p99_blowup.{s}: {p99:.4f}s vs base {base:.4f}s")
 
     # a never-fitting unsplittable shape (top-k root has no morsel axis)
@@ -530,7 +534,8 @@ def run_chaos(queries_per_family: int = 200, seed: int = 0,
         "ok": not failures, "failures": failures,
         "config": {"queries_per_family": queries_per_family, "seed": seed,
                    "smoke": smoke, "shapes": list(SHAPES),
-                   "families": list(families), "device": str(device)},
+                   "families": list(families), "device": str(device),
+                   "latency_judged": latency_judged},
         "baseline": baseline, "families": family_reports,
         "pressure": pressure, "memory": memory_report,
     }

@@ -1,3 +1,2 @@
-"""Training substrate on PyTorch: optimizer, step builders, fault-tolerant
-loop and checkpointing (one card; the sharded step and elastic remesh wait
-for ROADMAP Queue 1's dist/ item)."""
+"""Training substrate on PyTorch: optimizer, step builders (one card or a
+device mesh), elastic resharding, fault-tolerant loop and checkpointing."""

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: neither the package (its kernel lint
-included), nor its examples (examples/*_torch.py: the quickstart, the
+"""The PyTorch port stands alone: neither the package (its kernel lint and
+its distributed layer included: importing them starts no process group),
+nor its examples (examples/*_torch.py: the quickstart, the
 relational analytics, the pipeline and the LM twins), nor chip_smoke.py
 imports JAX or the JAX package."""
 import ast
@@ -63,6 +64,12 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "import repro_torch.launch.train\n"
             "import repro_torch.models.ssm, repro_torch.models.xlstm\n"
             "import repro_torch.data.pipeline\n"
+            "import repro_torch.dist.collectives, repro_torch.dist.pipeline\n"
+            "import repro_torch.train.elastic, repro_torch.launch.mesh\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
+            "import repro_torch.launch.report\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_available() or not dist.is_initialized(), 'a process group'\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

@@ -209,26 +209,66 @@ class _Mesh:
     shape = {"data": 2, "model": 4}
 
 
-def test_shard_act_identity_outside_and_raises_inside_a_context():
+@pytest.fixture
+def one_rank_mesh():
+    """A (1, 1) ("data", "model") DeviceMesh over a one-rank gloo group (an
+    in-process store: no port, no network)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_shard_act_identity_outside_and_redistributes_inside_a_context(one_rank_mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+
     x = torch.ones(2, 3)
     assert tsh.shard_act(x, ("batch", None)) is x
     assert tsh.current_ctx() is None
     rules = tsh.default_rules()
-    with tsh.sharding_ctx(_Mesh(), rules) as ctx:
+    assert tsh._mesh_axis_size(_Mesh(), ("data", "model", "pod")) == 8
+    assert tsh._mesh_axis_size(_Mesh(), "model") == 4
+    assert tsh._mesh_axis_size(_Mesh(), None) == 1
+    mesh = one_rank_mesh
+    assert tsh.mesh_shape(mesh) == {"data": 1, "model": 1}
+    with tsh.sharding_ctx(mesh, rules) as ctx:
         assert tsh.current_ctx() == ctx
-        assert tsh._mesh_axis_size(_Mesh(), ("data", "model", "pod")) == 8
-        assert tsh._mesh_axis_size(_Mesh(), "model") == 4
-        assert tsh._mesh_axis_size(_Mesh(), None) == 1
         with pytest.raises(ValueError, match="rank-2"):
             tsh.shard_act(x, ("batch",))
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1's dist/"):
-            tsh.shard_act(x, ("batch", None))
-        # the model code reaches it: no silent single-card run under a mesh
-        p = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams.init_from_template(
-            JL.mlp_tmpl("swiglu", 3, 5), jax.random.PRNGKey(0))), device="cpu")
-        with pytest.raises(NotImplementedError):
-            TL.apply_mlp("swiglu", p, x[None])
+        # a plain tensor enters the mesh replicated (size-1 axes shard nothing)
+        y = tsh.shard_act(x, ("batch", None))
+        assert isinstance(y, DTensor) and y.placements == (Replicate(), Replicate())
+        assert torch.equal(y.full_tensor(), x)
+    # the model code runs on the mesh and returns what it returns on one card
+    p = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams.init_from_template(
+        JL.mlp_tmpl("swiglu", 3, 5), jax.random.PRNGKey(0))), device="cpu")
+    want = TL.apply_mlp("swiglu", p, x[None])
+    with tsh.sharding_ctx(mesh, rules):
+        got = TL.apply_mlp("swiglu", p, x[None])
+    assert isinstance(got, DTensor) and torch.equal(got.full_tensor(), want)
     assert tsh.current_ctx() is None
+
+
+def test_placements_of_a_spec_and_back():
+    """A spec's placements on a named mesh and the spec they give back; a
+    dim split over mesh axes out of the mesh's order raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    class M3:
+        mesh_dim_names = ("pod", "data", "model")
+
+    assert tsh.placements_of((("pod", "data"), None, "model"), M3()) == (
+        Shard(0), Shard(0), Shard(2))
+    assert tsh.placements_of((None, "data"), M3()) == (Replicate(), Shard(1), Replicate())
+    assert tsh.spec_of((Shard(0), Shard(0), Shard(2)), M3(), 3) == (("pod", "data"), None,
+                                                                    "model")
+    with pytest.raises(ValueError, match="mesh's order"):
+        tsh.placements_of((("model", "data"),), M3())
 
 
 # ---------------------------------------------------------------------------

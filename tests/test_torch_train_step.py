@@ -156,14 +156,59 @@ def test_donation_writes_in_place_and_its_absence_does_not(rng):
     assert all(torch.equal(a, b) for a, b in zip(tensors(p1), tensors(p2)))
 
 
-def test_a_mesh_raises_the_roadmap_item():
-    ct = tbase.get_reduced_config("olmo-1b")
-    mesh = make_mesh((1, 1), ("data", "model"))
-    for build in (lambda: TSTEP.build_train_step(ct, mesh, None, TOPT.AdamW()),
-                  lambda: TSTEP.build_prefill_step(ct, mesh, None),
-                  lambda: TSTEP.build_serve_step(ct, mesh, None, 2, 8)):
-        with pytest.raises(NotImplementedError, match="item 3c"):
-            build()
+@pytest.fixture
+def one_rank_mesh():
+    """A (1, 1) ("data", "model") DeviceMesh over a one-rank gloo group (an
+    in-process store: no port, no network)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh as t_make_mesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield t_make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_the_builders_return_shardings_on_a_one_rank_mesh(one_rank_mesh, rng):
+    """On a (1, 1) mesh the three builders return their shardings, and each
+    step equals the one-card step: the same metrics and parameters, logits
+    and cache."""
+    from repro_torch.dist import sharding as TSH
+
+    mesh, rules = one_rank_mesh, TSH.default_rules()
+    _, ct, _, tp = _setup("qwen2-moe-a2.7b")
+    opt = TOPT.AdamW(lr=1e-2)
+    step, psh, bsh = TSTEP.build_train_step(ct, mesh, rules, opt, donate=False)
+    assert sorted(bsh) == ["tokens"] and bsh["tokens"].mesh is mesh
+    assert all(isinstance(s, TSH.NamedSharding) and s.spec == (None,) * len(s.spec)
+               for s in leaves(psh, lambda x: isinstance(x, TSH.NamedSharding)))
+    assert len(leaves(psh, lambda x: isinstance(x, TSH.NamedSharding))) == len(tensors(tp))
+    toks = {"tokens": torch.from_numpy(_tokens(ct, rng))}
+    p1, s1, m1 = TSTEP.build_train_step(ct, None, None, opt, donate=False)[0](
+        tp, opt.init(tp), toks)
+    p2, s2, m2 = step(tp, opt.init(tp), toks)
+    assert all(not TSH.is_dtensor(v) for v in m2.values())
+    for k in m1:
+        torch.testing.assert_close(m2[k], m1[k], rtol=1e-6, atol=0, msg=k)
+    for a, b in zip(tensors(p1), tensors(p2)):
+        torch.testing.assert_close(TSH.full(b), a, rtol=0, atol=1e-6)
+    prefill, psh2, bsh2 = TSTEP.build_prefill_step(ct, mesh, rules)
+    assert psh2 is not None and sorted(bsh2) == ["tokens"]
+    want = TSTEP.build_prefill_step(ct, None, None)[0](tp, {"tokens": toks["tokens"][:, :8]})
+    torch.testing.assert_close(TSH.full(prefill(tp, {"tokens": toks["tokens"][:, :8]})), want,
+                               rtol=0, atol=1e-5)
+    serve, psh3, csh, tsh_ = TSTEP.build_serve_step(ct, mesh, rules, 4, 8)
+    assert psh3 is not None and tsh_.shard_shape((4,)) == (4,)
+    assert sorted(csh) == ["kv"] and csh["kv"]["k"].shard_shape((2, 4, 8, 2, 16)) == (
+        2, 4, 8, 2, 16)
+    cache = TM.init_cache(ct, tp, 4, 8, None, torch.float32)
+    tok = toks["tokens"][:, 0]
+    l1, c1 = TSTEP.build_serve_step(ct, None, None, 4, 8)[0](tp, cache, tok, 0)
+    l2, c2 = serve(tp, cache, tok, 0)
+    torch.testing.assert_close(TSH.full(l2), l1, rtol=0, atol=1e-5)
+    torch.testing.assert_close(TSH.full(c2["kv"]["k"]), c1["kv"]["k"], rtol=0, atol=1e-6)
 
 
 def test_prefill_and_serve_steps_equal_reference(rng):
