@@ -345,9 +345,12 @@ TRAIN_KERNEL_GROUPS = {"matmuls": LM_KERNEL_GROUPS["matmuls"],
 # step on a (1, 1) ("data", "model") DeviceMesh over a one-rank NCCL group,
 # against 3 one-card steps from the same state: losses within 1e-5
 # relative, every parameter leaf within the JAX package's bound of 5e-3;
-# then the dry run's two cells on the 16 x 16 mesh of a fake process group
+# then the dry run's three cells on the 16 x 16 mesh of a fake process group
 DIST_STEPS, DIST_LOSS_RTOL, DIST_PARAM_TOL = 3, 1e-5, 5e-3
-DRYRUN_CELLS = (("qwen2-moe-a2.7b", "train_4k"), ("mixtral-8x7b", "decode_32k"))
+# the dry run shards train and prefill activations' sequence over 'model'
+DRYRUN_CELLS = (("qwen2-moe-a2.7b", "train_4k"), ("qwen2-moe-a2.7b", "prefill_32k"),
+                ("mixtral-8x7b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 300  # each cell's subprocess, from the phase's start
 # the hybrid's cell: zamba2-2.7b at its published widths and depth in bf16,
 # served as (u) serves (16 requests over 8 slots, a 128-token cache)
 HYB_ARCH, HYB_PARAMS = "zamba2-2.7b", 2_422_532_000
@@ -1673,8 +1676,13 @@ def dist_phase(torch, card) -> None:
     every parameter leaf, the routing kernels' launches); the int8
     error-feedback all-reduce over that group on one loss's gradients,
     bit for bit against `ef_compress_decompress`; `reshard_state` onto the
-    mesh and back, bit for bit; the dry run's two cells on the 16 x 16
-    mesh of a fake process group, each in a subprocess of its own."""
+    mesh and back, bit for bit; the same 3 sharded steps again under
+    `default_rules(seq_shard=True)`, against the same one-card steps (a
+    repeat: a (1, 1) mesh has no second rank to split the sequence over,
+    so no seq-sharded path runs; the CPU's 4-rank gloo world holds those);
+    the dry run's three cells on the
+    16 x 16 mesh of a fake process group, each in a subprocess of its
+    own."""
     import gc
 
     import torch.distributed as dist
@@ -1743,6 +1751,46 @@ def dist_phase(torch, card) -> None:
     del p1, _s1
     free()
 
+    def held(params, rec, psh, seq_shard: bool):
+        """The sharded run's parameters, losses and launches against the
+        one-card run's."""
+        what = "sharded step" + (" (seq_shard rules, nothing split on one rank)"
+                                 if seq_shard else "")
+        check(all(SH.is_dtensor(t) for t in tensors(params)),
+              f"{what}: a parameter came back as a plain tensor")
+        check(psh is not None, f"{what}: the builder returned no parameter shardings")
+        per_step = {k: 2 * cfg.num_layers if k in routing else 0 for k in ops.launch_counts()}
+        for i, r in enumerate(rec):
+            check(r["launches"] == per_step, f"{what} {i}: launches {r['launches']}, "
+                  f"expected {2 * cfg.num_layers} of each routing kernel and nothing else")
+        loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(rec, rec1))
+        check(loss_err <= DIST_LOSS_RTOL, f"{what}: losses {[r['loss'] for r in rec]} "
+              f"against one card's {[r['loss'] for r in rec1]}")
+        leaf_err, identical = 0.0, True
+        sums = []
+        for a, b in zip(final1, tensors(params)):
+            loc = SH.local(b)
+            leaf_err = max(leaf_err, float((loc - a.to(dev)).abs().max()))
+            identical = identical and torch.equal(loc.cpu(), a)
+            sums.append((float(loc.double().sum()), float(loc.abs().max())))
+        check(leaf_err <= DIST_PARAM_TOL, f"{what}: a parameter leaf differs by {leaf_err}")
+        med1 = float(np.median([r["ms"] for r in rec1[1:]]))
+        med2 = float(np.median([r["ms"] for r in rec[1:]]))
+        info = {"card": card, "arch": LM_ARCH, "layers": cfg.num_layers, "mesh": [1, 1],
+                "seq_shard": seq_shard, "steps": DIST_STEPS, "losses": [r["loss"] for r in rec],
+                "one_card_losses": [r["loss"] for r in rec1], "loss_rel_err": loss_err,
+                "param_max_abs_err": leaf_err, "params_bit_identical": identical,
+                "param_checksums_f64_sum_and_amax": sums[:4],
+                "step_ms": [r["ms"] for r in rec], "one_card_step_ms": [r["ms"] for r in rec1],
+                "step_ms_median": med2, "one_card_step_ms_median": med1,
+                "launches_per_step": {k: per_step[k] for k in routing}}
+        log(json.dumps({"dist_train_step": info}))
+        log(f"(aa) {what} on a (1, 1) mesh (one-rank NCCL): {LM_ARCH} at "
+            f"{cfg.num_layers} layers, {DIST_STEPS} steps, losses within {loss_err:.2e} "
+            f"relative of one card's, parameters within {leaf_err:.2e} (bit-identical: "
+            f"{identical}); step median {med2:.3f} ms against one card's {med1:.3f} ms; "
+            f"{2 * cfg.num_layers} launches of each routing kernel a step ({card})")
+
     # the same steps on a (1, 1) mesh of a one-rank NCCL group
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:
@@ -1750,41 +1798,7 @@ def dist_phase(torch, card) -> None:
         rules = SH.default_rules()
         ops.reset_launch_counts()
         p2, s2, psh, rec2 = run(mesh, rules)
-        check(all(SH.is_dtensor(t) for t in tensors(p2)),
-              "sharded step: a parameter came back as a plain tensor")
-        check(psh is not None, "sharded step: the builder returned no parameter shardings")
-        per_step = {k: 2 * cfg.num_layers if k in routing else 0 for k in ops.launch_counts()}
-        for i, r in enumerate(rec2):
-            check(r["launches"] == per_step, f"sharded step {i}: launches {r['launches']}, "
-                  f"expected {2 * cfg.num_layers} of each routing kernel and nothing else")
-        loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(rec2, rec1))
-        check(loss_err <= DIST_LOSS_RTOL, f"sharded step: losses {[r['loss'] for r in rec2]} "
-              f"against one card's {[r['loss'] for r in rec1]}")
-        leaf_err, identical = 0.0, True
-        sums = []
-        for a, b in zip(final1, tensors(p2)):
-            loc = SH.local(b)
-            leaf_err = max(leaf_err, float((loc - a.to(dev)).abs().max()))
-            identical = identical and torch.equal(loc.cpu(), a)
-            sums.append((float(loc.double().sum()), float(loc.abs().max())))
-        check(leaf_err <= DIST_PARAM_TOL, f"sharded step: a parameter leaf differs by {leaf_err}")
-        med1 = float(np.median([r["ms"] for r in rec1[1:]]))
-        med2 = float(np.median([r["ms"] for r in rec2[1:]]))
-        info = {"card": card, "arch": LM_ARCH, "layers": cfg.num_layers, "mesh": [1, 1],
-                "steps": DIST_STEPS, "losses": [r["loss"] for r in rec2],
-                "one_card_losses": [r["loss"] for r in rec1], "loss_rel_err": loss_err,
-                "param_max_abs_err": leaf_err, "params_bit_identical": identical,
-                "param_checksums_f64_sum_and_amax": sums[:4],
-                "step_ms": [r["ms"] for r in rec2], "one_card_step_ms": [r["ms"] for r in rec1],
-                "step_ms_median": med2, "one_card_step_ms_median": med1,
-                "launches_per_step": {k: per_step[k] for k in routing}}
-        log(json.dumps({"dist_train_step": info}))
-        log(f"(aa) sharded step on a (1, 1) mesh (one-rank NCCL): {LM_ARCH} at "
-            f"{cfg.num_layers} layers, {DIST_STEPS} steps, losses within {loss_err:.2e} "
-            f"relative of one card's, parameters within {leaf_err:.2e} (bit-identical: "
-            f"{identical}); step median {med2:.3f} ms against one card's {med1:.3f} ms; "
-            f"{2 * cfg.num_layers} launches of each routing kernel a step ({card})")
-        del final1
+        held(p2, rec2, psh, seq_shard=False)
 
         # elastic: the state onto the mesh again and back to plain tensors
         before = [SH.local(t) for t in tensors(p2)] + [SH.local(t) for t in tensors(s2.mu)]
@@ -1835,16 +1849,26 @@ def dist_phase(torch, card) -> None:
             f"{ms:.3f} ms a call against a {bound:.3f} ms bound ({card})")
         del grads, ef
         free()
+
+        # the sharded steps again under the rules of the JAX package's train
+        # and prefill cells; on one rank they split nothing, so this repeats
+        # the first run through `default_rules(seq_shard=True)`
+        ops.reset_launch_counts()
+        p5, _s5, psh5, rec5 = run(mesh, SH.default_rules(seq_shard=True))
+        held(p5, rec5, psh5, seq_shard=True)
+        del p5, _s5, final1
+        free()
     finally:
         dist.destroy_process_group()
 
     for arch, shape, t0, proc in dry:
         try:
-            out, _ = proc.communicate(timeout=max(10.0, 240 - (time.perf_counter() - t0)))
+            out, _ = proc.communicate(
+                timeout=max(10.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
         except subprocess.TimeoutExpired:
             proc.kill()
             out, _ = proc.communicate()
-            fail(f"dry run {arch} {shape}: no end within 240 s: {out[-3000:]}")
+            fail(f"dry run {arch} {shape}: no end within {DRYRUN_TIMEOUT_S} s: {out[-3000:]}")
         secs = time.perf_counter() - t0
         recs = list(out_dir.glob(f"{arch}__{shape}__single.json"))
         check(proc.returncode == 0 and len(recs) == 1,
@@ -1856,6 +1880,7 @@ def dist_phase(torch, card) -> None:
               f"{rec.get('traceback', '')[-1500:]}")
         mem = rec["memory"]
         log(json.dumps({"dryrun": {"card": card, "arch": arch, "shape": shape,
+                                   "status": rec["status"], "seq_shard": rec["seq_shard"],
                                    "mesh": rec["mesh"], "chips": rec["chips"],
                                    "wall_s": secs, "trace_s": rec["trace_s"], "memory": mem,
                                    "card_total_memory": torch.cuda.get_device_properties(

@@ -235,7 +235,7 @@ def local_map(fn, *, out_placements, in_placements):
     """`fn` on each rank's local shards (torch's `local_map`, its inputs
     redistributed to `in_placements`, its outputs DTensors of
     `out_placements`), run outside the mesh context: the local code is the
-    one-card code."""
+    one-card code. The inputs' gradients are laid out by `grad_placements`."""
     from torch.distributed.tensor.experimental import local_map as _local_map
 
     def on_one_rank(*args):  # the local code sees no mesh context
@@ -246,19 +246,25 @@ def local_map(fn, *, out_placements, in_placements):
             _CTX.reset(token)
 
     return _local_map(on_one_rank, out_placements=out_placements,
-                      in_placements=in_placements, redistribute_inputs=True)
+                      in_placements=in_placements,
+                      in_grad_placements=grad_placements(in_placements),
+                      redistribute_inputs=True)
 
 
-def pointwise(fn, x):
-    """An elementwise `fn` of `x`; on a DTensor it runs on the local shard
-    (for ops that DTensor has no rule for, such as log_sigmoid's
-    backward)."""
-    if not is_dtensor(x):
-        return fn(x)
-    from torch.distributed.tensor import Replicate
+def grad_placements(in_placements):
+    """The gradients' placements of a `local_map` region's inputs: where an
+    input is replicated over a mesh dim that splits another input, each
+    rank works on its own part with the same copy of it, so the gradient
+    each rank returns is a partial sum there (a weight's, where the tokens
+    are split; the tokens', where a weight's output dim is split); elsewhere
+    it is laid out as the input."""
+    from torch.distributed.tensor import Partial
 
-    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
-    return local_map(lambda t: (fn(t),), out_placements=(pl,), in_placements=(pl,))(x)[0]
+    split = [any(pl is not None and pl[m].is_shard() for pl in in_placements)
+             for m in range(max(len(pl) for pl in in_placements if pl is not None))]
+    return tuple(None if pl is None else
+                 tuple(Partial() if s and p.is_replicate() else p for s, p in zip(split, pl))
+                 for pl in in_placements)
 
 
 def local(x):
@@ -342,26 +348,71 @@ def shard_act(x, axes):
 
 def constrain(x, spec):
     """`x` on the current context's mesh with `spec` (mesh axes per dim),
-    its gradient too; a plain tensor enters replicated first."""
+    its gradient back on `x`'s placements (`_Constrain`); a plain tensor
+    enters replicated first."""
     mesh = current_ctx()[0]
     return _Constrain.apply(replicated(x, mesh), placements_of(spec, mesh))
 
 
+def pin(x):
+    """`x` as it is, its gradient redistributed to `x`'s placements: a
+    view's output whose gradient DTensor could otherwise shard along a
+    flattened dim that the view back cannot split. `x` itself off a mesh."""
+    return _Constrain.apply(x, tuple(x.placements)) if is_dtensor(x) else x
+
+
+def merge_lead(x, n: int = 2):
+    """`x` (d0, ..., d{n-1}, *rest) as (d0 * ... * d{n-1}, *rest): the
+    (batch, seq) flatten of the MoE tokens and of `layers.contract`. On a
+    mesh the merged dims are laid out on d0's mesh axes alone on both sides
+    of the reshape, in the forward and, through `_Constrain`, in the
+    backward: a dim sharded after the first (the sequence over 'model') is
+    gathered first, so no strided shard reaches a view."""
+    shape = (math.prod(x.shape[:n]),) + tuple(x.shape[n:])
+    if not is_dtensor(x):
+        return x.reshape(shape)
+    mesh = x.device_mesh
+    spec = spec_of(x.placements, mesh, x.dim())
+    x = _Constrain.apply(x, placements_of((spec[0],) + (None,) * (n - 1) + spec[n:], mesh))
+    return _Constrain.apply(x.reshape(shape), placements_of((spec[0],) + spec[n:], mesh))
+
+
+def split_lead(y, lead):
+    """`merge_lead`'s inverse: `y` (prod(lead), *rest) as (*lead, *rest),
+    the result laid out on the first dim's mesh axes alone (replicated where
+    lead[0] does not divide them), its gradient gathered there before the
+    view."""
+    shape = tuple(lead) + tuple(y.shape[1:])
+    if not is_dtensor(y):
+        return y.reshape(shape)
+    mesh = y.device_mesh
+    spec = spec_of(y.placements, mesh, y.dim())
+    ax0 = spec[0] if lead[0] % _mesh_axis_size(mesh, spec[0]) == 0 else None
+    y = _Constrain.apply(y, placements_of((ax0,) + spec[1:], mesh))
+    return _Constrain.apply(y.reshape(shape),
+                            placements_of((ax0,) + (None,) * (len(lead) - 1) + spec[1:], mesh))
+
+
 class _Constrain(torch.autograd.Function):
-    """A DTensor redistributed to `placements`, and its gradient as well
-    (what the JAX package's sharding constraint does to the cotangent):
-    the backward then sees each gradient on the sharding its forward value
-    had, and every view's gradient reshapes evenly."""
+    """A DTensor redistributed to `placements`, its gradient redistributed
+    back to the placements the input had (a partial sum's gradient
+    replicated): the backward mirrors the forward, so each op of the
+    backward sees its output's gradient on the sharding its forward output
+    had, every view's gradient reshapes as the view did, and a gradient
+    never leaves a region laid out another way (the sequence split over
+    'model') in that region's layout."""
 
     @staticmethod
     def forward(ctx, x, placements):
-        ctx.placements = placements
+        from torch.distributed.tensor import Replicate
+
+        ctx.in_placements = tuple(Replicate() if p.is_partial() else p for p in x.placements)
         if tuple(x.placements) == placements:
             return x.view_as(x)
         return x.redistribute(x.device_mesh, placements)
 
     @staticmethod
     def backward(ctx, g):
-        if tuple(g.placements) != ctx.placements:
-            g = g.redistribute(g.device_mesh, ctx.placements)
+        if tuple(g.placements) != ctx.in_placements:
+            g = g.redistribute(g.device_mesh, ctx.in_placements)
         return g, None

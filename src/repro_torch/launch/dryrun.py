@@ -7,6 +7,12 @@ Usage:
         --shape train_4k --mesh single
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both \\
         --out experiments/dryrun_torch
+    # the same sweep, a process a cell, 8 at a time
+    PYTHONPATH=src python -c 'from repro_torch.launch.dryrun import SHAPES, list_archs
+    print(*(f"--arch {a} --shape {s} --mesh {m}" for a in list_archs() for s in SHAPES
+            for m in ("single", "multi")), sep="\\n")' | xargs -L 1 -P 8 timeout 2400 \\
+        env PYTHONPATH=src python -m repro_torch.launch.dryrun --out experiments/dryrun_torch
+    PYTHONPATH=src python -m repro_torch.launch.report experiments/dryrun_torch
 
 The JAX package lowers and compiles the step for 512 placeholder devices.
 The port needs neither devices nor a compiler: the process joins a fake
@@ -29,8 +35,11 @@ The trace runs the kernels' plain versions (a meta tensor is not a CUDA
 tensor), with the MoE plans' sizes known from the capacity. Failures here
 (a placement DTensor cannot take, an op without a sharding rule) are bugs
 in the system; skipped cells (long_500k on full-attention archs) are
-recorded with their DESIGN.md §5 rationale. Run each invocation in a
-process of its own: it owns the process's default process group.
+recorded with their DESIGN.md §5 rationale. Train and prefill cells shard
+the activations' sequence over 'model' (`seq_shard`), as the JAX
+package's do. Run each invocation in a process of its own: it owns the
+process's default process group. Cells already recorded in `--out` are
+skipped.
 """
 from __future__ import annotations
 
@@ -157,11 +166,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         return rec
 
     chips = math.prod(sizes)
-    # no sequence sharding, where the JAX package shards train and prefill
-    # activations' seq over 'model': flattening (batch, seq) sharded over
-    # (data, model) gives DTensor a strided shard, whose propagation reads
-    # tensor values and cannot run on fake tensors
-    rules = SH.default_rules(multi_pod="pod" in axes, fsdp=True, seq_shard=False)
+    rules = SH.default_rules(multi_pod="pod" in axes, fsdp=True,
+                             seq_shard=(shape.kind in ("train", "prefill")))
     if variant != "baseline":
         rec["variant"] = variant
         vo = VARIANTS[variant]
@@ -172,6 +178,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
     if rule_overrides:
         rules = SH.ShardingRules(param={**rules.param, **rule_overrides.get("param", {})},
                                  act={**rules.act, **rule_overrides.get("act", {})})
+    rec["seq_shard"] = rules.act.get("seq") is not None
 
     t0 = time.time()
     try:

@@ -24,29 +24,40 @@ def fmt_bytes(b):
     return f"{b / 1e9:.2f}"
 
 
-def dryrun_table(recs, mesh_tag: str) -> str:
-    rows = ["| arch | shape | status | live GB/dev | fits 80GB | trace s"
-            " | collectives (AG/AR/RS/A2A) |",
-            "|---|---|---|---|---|---|---|"]
-    for tag in sorted(recs):
-        r = recs[tag]
-        if not tag.endswith(mesh_tag):
-            continue
-        arch, shape, _ = tag.rsplit("__", 2)
-        if r["status"] == "skipped":
-            rows.append(f"| {arch} | {shape} | skipped | — | — | — | {r['reason'][:48]} |")
-            continue
-        if r["status"] != "ok":
-            rows.append(f"| {arch} | {shape} | **FAILED** | — | — | — | {r['error'][:48]} |")
-            continue
-        c = r["collectives"]["counts"]
-        coll = "/".join(str(c.get(k, 0)) for k in
-                        ("all-gather", "all-reduce", "reduce-scatter", "all-to-all"))
-        mb = f" (mb={r['microbatches']})" if r.get("microbatches", 1) > 1 else ""
-        rows.append(
-            f"| {arch} | {shape}{mb} | ok | {fmt_bytes(r['memory']['live_bytes_per_device'])} "
-            f"| {'yes' if r['memory']['fits_h100_80GB'] else '**NO**'} "
-            f"| {r['trace_s']} | {coll} |")
+_MESH_COLS = ("status", "live GB/dev", "fits 80GB", "trace s",
+              "collectives (AG/AR/RS/A2A)", "collective TB/dev", "dominant")
+_MESH_NAMES = {"__single": "16x16", "__multi": "2x16x16"}
+
+
+def _mesh_cells(r) -> list:
+    """One record's cells of a `dryrun_table` row."""
+    if r is None:
+        return ["not run"] + ["—"] * (len(_MESH_COLS) - 1)
+    if r["status"] == "skipped":
+        return ["skipped", "—", "—", "—", r["reason"][:48], "—", "—"]
+    if r["status"] != "ok":
+        return ["**FAILED**", "—", "—", "—", r["error"][:48], "—", "—"]
+    c = r["collectives"]
+    coll = "/".join(str(c["counts"].get(k, 0)) for k in
+                    ("all-gather", "all-reduce", "reduce-scatter", "all-to-all"))
+    return ["ok", fmt_bytes(r["memory"]["live_bytes_per_device"]),
+            "yes" if r["memory"]["fits_h100_80GB"] else "**NO**", f"{r['trace_s']}", coll,
+            f"{c['bytes_static'] / 1e12:.3f}", r["roofline"]["dominant"].removesuffix("_s")]
+
+
+def dryrun_table(recs, *mesh_tags: str) -> str:
+    """A row an arch x shape recorded under any of `mesh_tags` ("__single",
+    "__multi"), each mesh's cells side by side."""
+    head = [f"{_MESH_NAMES.get(m, m)} {c}" if len(mesh_tags) > 1 else c
+            for m in mesh_tags for c in _MESH_COLS]
+    rows = ["| arch | shape | " + " | ".join(head) + " |", "|---|---|" + "---|" * len(head)]
+    cells = sorted({tuple(t.rsplit("__", 2)[:2]) for t in recs
+                    if any(t.endswith(m) for m in mesh_tags)})
+    for arch, shape in cells:
+        runs = [recs.get(f"{arch}__{shape}{m}") for m in mesh_tags]
+        mb = max(r.get("microbatches", 1) for r in runs if r is not None)
+        row = [arch, shape + (f" (mb={mb})" if mb > 1 else "")]
+        rows.append("| " + " | ".join(row + [c for r in runs for c in _mesh_cells(r)]) + " |")
     return "\n".join(rows)
 
 
@@ -110,6 +121,8 @@ def main(argv=None):
     print(dryrun_table(final, "__single"))
     print("\n### multi-pod (2x16x16 = 512 cards)\n")
     print(dryrun_table(final, "__multi"))
+    print("\n### both meshes\n")
+    print(dryrun_table(final, "__single", "__multi"))
     print("\n### roofline (single-pod)\n")
     print(roofline_table(final))
     print("\n### memory deltas vs baseline\n")

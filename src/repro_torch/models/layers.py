@@ -21,8 +21,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..dist.sharding import (constrain, current_ctx, is_dtensor, local_map, mesh_shape,
-                             placements_of, replicated, shard_act)
+from ..dist.sharding import (constrain, current_ctx, is_dtensor, local_map, merge_lead,
+                             mesh_shape, pin, placements_of, replicated, shard_act, spec_of,
+                             split_lead)
 from .params import P, axis_spec
 
 
@@ -183,20 +184,86 @@ def contract(eq: str, x, w, n_in: int, out_axes: tuple):
     `out_axes` (one per output dim) before it unflattens. DTensor's own
     einsum may split a flattened dim where its parts cannot split (heads
     that do not divide the model axis), or reach a strided placement whose
-    propagation costs seconds an op on a 3-D mesh."""
+    propagation costs seconds an op on a 3-D mesh. A sequence-sharded `x`
+    contracts on each rank's shards instead (`_contract_local`)."""
     if not (is_dtensor(x) or is_dtensor(w)):
         return torch.einsum(eq, x, w)
     lead, inner, tail = x.shape[:-n_in], w.shape[:n_in], w.shape[n_in:]
+    if seq_sharded(x, len(lead)):
+        return _contract_local(x, w, n_in)
     mesh, rules = current_ctx()
     spec = axis_spec(tuple(lead) + tuple(tail), out_axes, rules.act, mesh_shape(mesh))
 
     def merged(sp):  # a flattened dim keeps its outermost part's sharding alone
         return sp[0] if all(a is None for a in sp[1:]) else None
 
-    y = x.reshape(math.prod(lead), math.prod(inner)) @ w.reshape(math.prod(inner),
-                                                                 math.prod(tail))
+    x2 = pin(merge_lead(x, len(lead)).reshape(-1, math.prod(inner)))
+    y = x2 @ pin(replicated(w, mesh).reshape(math.prod(inner), math.prod(tail)))
     y = constrain(y, (merged(spec[:len(lead)]), merged(spec[len(lead):])))
-    return y.reshape(tuple(lead) + tuple(tail))
+    return split_lead(y.reshape((y.shape[0],) + tuple(tail)), lead)
+
+
+def seq_sharded(x, n_lead: int = 2) -> bool:
+    """Whether `x` is a DTensor sharded along one of its `n_lead` leading
+    dims after the first: an activation (b, s, ...) whose sequence is split
+    (`seq_shard`)."""
+    return is_dtensor(x) and any(p.is_shard() and 0 < p.dim < n_lead for p in x.placements)
+
+
+def _contract_local(x, w, n_in: int):
+    """`contract` of a sequence-sharded `x`, on each rank's local shards:
+    x keeps its leading dims' sharding and has its contracted dims whole;
+    `w` (flattened to (prod(inner), prod(tail))) is gathered over the mesh
+    dims that split x, and keeps its output dim's sharding on the others.
+    Flattening (batch, seq) on the mesh would make a strided shard, whose
+    sharding propagation costs tens of seconds an op on a 3-D mesh and
+    which a view in the backward cannot take. The output leads with x's
+    dims, sharded as they were, then w's (their first split where w's
+    output dim was)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    n_lead = x.dim() - n_in
+    w = replicated(w, mesh)
+    inner, tail = tuple(w.shape[:n_in]), tuple(w.shape[n_in:])
+    w2 = w.reshape(math.prod(inner), math.prod(tail))
+    xp, wp, op = [], [], []
+    for px, pw in zip(x.placements, w2.placements):
+        if px.is_shard() and px.dim < n_lead:
+            xp.append(px), wp.append(Replicate()), op.append(Shard(px.dim))
+        elif pw.is_shard(1):
+            xp.append(Replicate()), wp.append(pw), op.append(Shard(n_lead))
+        else:
+            for acc in (xp, wp, op):
+                acc.append(Replicate())
+
+    def mm(a, b):
+        lead = a.shape[:n_lead]
+        y = a.reshape(math.prod(lead), -1) @ b
+        return (y.reshape(lead + (-1,) + tail[1:]),)
+
+    return local_map(mm, out_placements=(tuple(op),),
+                     in_placements=(tuple(xp), tuple(wp)))(x, w2)[0]
+
+
+def gather_seq(x):
+    """`x` (b, s, ...) with its sequence whole on every rank, its other dims
+    as they were (and its gradient so): a recurrence or a scan over the
+    sequence reads all of it. `x` itself where the sequence is not split."""
+    if not seq_sharded(x):
+        return x
+    spec = spec_of(x.placements, x.device_mesh, x.dim())
+    return constrain(x, (spec[0], None) + spec[2:])
+
+
+def linear(x, w, out_axis: str | None):
+    """x @ w of an activation x (b, s, d) and a weight w (d, f), f the
+    logical `out_axis`. On a mesh it is a `contract`: DTensor's own matmul
+    of a 3-D activation may split the rows where f does not divide and
+    unflatten them into a strided shard."""
+    if not (is_dtensor(x) or is_dtensor(w)):
+        return x @ w
+    return contract("...d,df->...f", x, w, 1, ("batch",) + (None,) * (x.dim() - 2) + (out_axis,))
 
 
 def proj_heads(x, w, head_axis: str = "heads"):
@@ -360,12 +427,12 @@ def mlp_tmpl(kind: str, d: int, f: int):
 
 def apply_mlp(kind: str, p, x):
     if kind == "swiglu":
-        h = F.silu(x @ p["wg"]) * (x @ p["wu"])
+        h = F.silu(linear(x, p["wg"], "mlp")) * linear(x, p["wu"], "mlp")
     else:
         # jax.nn.gelu's default is the tanh approximation
-        h = F.gelu(x @ p["wi"], approximate="tanh")
+        h = F.gelu(linear(x, p["wi"], "mlp"), approximate="tanh")
     h = shard_act(h, ("batch", "seq", "mlp"))
-    return shard_act(h @ p["wd"], ("batch", "seq", "embed"))
+    return shard_act(linear(h, p["wd"], "embed"), ("batch", "seq", "embed"))
 
 
 # ---------------------------------------------------------------------------

@@ -246,10 +246,8 @@ def _embed_rows(table, ids):
 
 def _logits(cfg: ArchConfig, params, x):
     x = L.apply_norm(cfg.norm, params["ln_f"], x)
-    if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, params["embed"]["table"])
-    else:
-        logits = x @ params["head"]["w"]
+    w = params["embed"]["table"].t() if cfg.tie_embeddings else params["head"]["w"]
+    logits = L.linear(x, w, "vocab")
     # mask vocab padding
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30

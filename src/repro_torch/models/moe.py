@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from ..core import primitives as prim
 from ..dist import sharding as SH
 from ..dist.sharding import shard_act
-from .params import P
+from .params import P, axis_spec
 
 
 def moe_tmpl(d: int, cfg):
@@ -188,6 +188,40 @@ def _combine_local(out, at, blk_asg):
                          for g in range(out.shape[0])]),)
 
 
+def _grouped_swiglu(xin, wg, wu, wd):
+    """xin (G, E, C, D) -> (G, E, C, D): each group's grouped SwiGLU."""
+    h = F.silu(torch.einsum("gecd,edf->gecf", xin, wg)) * torch.einsum("gecd,edf->gecf", xin, wu)
+    return torch.einsum("gecf,efd->gecd", h, wd)
+
+
+def _expert_ffn_groups(xin, wg, wu, wd):
+    """`_grouped_swiglu`; on a mesh each rank runs its own token groups
+    against the experts' weights gathered but for the hidden dim, which
+    stays split over the 'mlp' axes (the expert-parallel-free TP layout of
+    `default_rules`): the output is a partial sum over those axes. DTensor's
+    own einsums may split the expert dim where it does not divide the
+    mesh (60 experts over 16) and then view a permuted local shard."""
+    if not SH.is_dtensor(xin):
+        return _grouped_swiglu(xin, wg, wu, wd)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, rules = SH.current_ctx()
+    names = mesh.mesh_dim_names
+    gx = xin.placements
+    fx = axis_spec(wg.shape, (None, None, "mlp"), rules.act, SH.mesh_shape(mesh))[2]
+    fx = () if fx is None else (fx if isinstance(fx, tuple) else (fx,))
+    split = [n in fx and not g.is_shard() for n, g in zip(names, gx)]
+
+    def pl(shard, other):  # Shard(dim) on the hidden dim's mesh dims, `other` elsewhere
+        return tuple(Shard(shard) if s else other for s in split)
+
+    in_pl = (tuple(gx), pl(2, Replicate()), pl(2, Replicate()), pl(1, Replicate()))
+    out_pl = tuple(Partial() if s else g for s, g in zip(split, gx))
+    ffn = SH.local_map(lambda *a: (_grouped_swiglu(*a),), out_placements=(out_pl,),
+                       in_placements=in_pl)
+    return ffn(xin, *(SH.replicated(w, mesh) for w in (wg, wu, wd)))[0]
+
+
 def _dispatch_sort_grouped(p, x2, expert_idx, gates, *, k: int, E: int,
                            cf: float, groups: int, C: int | None = None):
     """Hierarchical GFTR dispatch: tokens split into `groups` shard-local
@@ -216,10 +250,7 @@ def _dispatch_sort_grouped(p, x2, expert_idx, gates, *, k: int, E: int,
         combine = SH.local_map(combine, out_placements=(pl,), in_placements=(pl, pl, pl))
     xin, at, blk_asg = plan(xg, eg)
     xin = shard_act(xin, ("tokens", None, None, None))
-    h = F.silu(torch.einsum("gecd,edf->gecf", xin, p["wg"])) * torch.einsum(
-        "gecd,edf->gecf", xin, p["wu"])
-    h = shard_act(h, ("tokens", None, None, "mlp"))
-    out = torch.einsum("gecf,efd->gecd", h, p["wd"])
+    out = _expert_ffn_groups(xin, p["wg"], p["wu"], p["wd"])
     out = shard_act(out, ("tokens", None, None, None)).reshape(groups, E * C_loc, D)
     out = shard_act(out, ("tokens", None, None))
     ya = shard_act(combine(out, at, blk_asg)[0], ("tokens", None, None))  # (G, t_loc*k, D)
@@ -274,8 +305,8 @@ def apply_moe(p, x, moe_cfg):
     """x: (b, s, d). Returns (y, aux_loss)."""
     b, s, d = x.shape
     # tokens are sharded over the batch's axes alone: a sequence sharded
-    # over another axis is gathered before (b, s) flattens
-    x2 = shard_act(x, ("batch", None, "embed")).reshape(b * s, d)
+    # over another axis is gathered before (b, s) flattens, its gradient too
+    x2 = SH.merge_lead(shard_act(x, ("batch", None, "embed")))
     expert_idx, gates, aux = _route(p, x2, moe_cfg.top_k)
     C = _capacity(b * s, moe_cfg.top_k, moe_cfg.num_experts, moe_cfg.capacity_factor)
     if moe_cfg.dispatch == "sort":
@@ -297,4 +328,4 @@ def apply_moe(p, x, moe_cfg):
         hs = F.silu(xs2 @ sh["wg"]) * (xs2 @ sh["wu"])
         hs = shard_act(hs, ("tokens", "mlp"))
         y = y + shard_act(hs @ sh["wd"], ("tokens", "embed"))
-    return y.reshape(b, s, d), aux * moe_cfg.router_aux_coef
+    return SH.split_lead(y, (b, s)), aux * moe_cfg.router_aux_coef

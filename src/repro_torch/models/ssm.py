@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from ..dist.sharding import (current_ctx, is_dtensor, local_map, mesh_shape, placements_of,
                              shard_act)
-from .layers import rms
+from .layers import gather_seq, linear, rms
 from .params import P, axis_spec
 
 
@@ -65,7 +65,7 @@ def _split(p, x, cfg, d):
     inner = cfg.expand * d
     n = cfg.state_dim
     nheads = inner // cfg.head_dim
-    zxbcdt = x @ p["in_proj"]
+    zxbcdt = linear(x, p["in_proj"], "inner")
     z = zxbcdt[..., :inner]
     xbc = zxbcdt[..., inner:inner + inner + 2 * n]
     dt = zxbcdt[..., -nheads:]
@@ -74,12 +74,13 @@ def _split(p, x, cfg, d):
 
 def _gated_norm_out(p, y, z):
     """Gated RMSNorm then the out projection."""
-    return (rms(y * F.silu(z)) * p["norm_scale"]) @ p["out_proj"]
+    return linear(rms(y * F.silu(z)) * p["norm_scale"], p["out_proj"], "embed")
 
 
 def apply_ssm(p, x, cfg):
     """Training/prefill. x: (b, s, d) -> (b, s, d)."""
     b, s, d = x.shape
+    x = gather_seq(x)  # the conv and the scan run along the whole sequence
     z, xbc, dt, inner, n, nheads = _split(p, x, cfg, d)
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
     xs = xbc[..., :inner]

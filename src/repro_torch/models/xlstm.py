@@ -16,6 +16,7 @@ states. The sLSTM recurrence is a Python loop of one cell step per token
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -23,8 +24,8 @@ import torch.nn.functional as F
 
 from ..dist import sharding as SH
 from ..dist.sharding import shard_act
-from .layers import proj_heads, rms
-from .params import P
+from .layers import contract, gather_seq, linear, proj_heads, rms
+from .params import P, axis_spec
 
 
 # ---------------------------------------------------------------------------
@@ -64,7 +65,7 @@ def _mlstm_qkvg(p, x, cfg, d, conv_state=None):
     inner = int(cfg.proj_factor_mlstm * d)
     nh = cfg.num_heads
     dk = inner // nh
-    up = x @ p["up"]
+    up = linear(x, p["up"], "inner")
     xin, z = up[..., :inner], up[..., inner:]
     if conv_state is None:
         xc = _conv_silu(xin, p["conv_w"], p["conv_b"])
@@ -76,7 +77,8 @@ def _mlstm_qkvg(p, x, cfg, d, conv_state=None):
     q = proj_heads(xc, p["wq"]) / scale
     k = proj_heads(xc, p["wk"])
     v = proj_heads(xin, p["wv"])
-    g = torch.einsum("bsd,dhg->bshg", xc, p["wgate"]).float() + p["gate_b"].float()
+    g = contract("bsd,dhg->bshg", xc, p["wgate"], 1, ("batch", None, "heads", None)).float() \
+        + p["gate_b"].float()
     ipre, fpre = g[..., 0], g[..., 1]
     return q, k, v, ipre, fpre, z, new_state, inner, nh, dk
 
@@ -89,46 +91,79 @@ def apply_mlstm(p, x, cfg):
     chunked form (intra-chunk quadratic + inter-chunk (C, n, m) carry — the
     same structure as SSD) for long ones, bounding score memory at
     (b, Q, Q, h) per chunk."""
+    x = gather_seq(x)  # the conv and the gates' cumulative sums run along the sequence
     if x.shape[1] > MLSTM_CHUNK:
         return _apply_mlstm_chunked(p, x, cfg, MLSTM_CHUNK)
     return _apply_mlstm_quadratic(p, x, cfg)
 
 
+def _per_head(fn, q, k, v, ipre, fpre):
+    """fn(q, k, v, ipre, fpre) -> (b, s, h, dk). On a mesh each rank runs
+    its own batch rows and heads (`local_map`; the heads whole where they do
+    not divide the model axis): the mLSTM is independent per sequence and
+    per head, and DTensor's einsums over (batch, heads) merged would form a
+    strided shard, whose propagation costs minutes an op on a 3-D mesh."""
+    if not SH.is_dtensor(q):
+        return fn(q, k, v, ipre, fpre)
+    mesh, rules = SH.current_ctx()
+    spec = axis_spec(q.shape, ("batch", None, "heads", None), rules.act, SH.mesh_shape(mesh))
+    pq, pg = SH.placements_of(spec, mesh), SH.placements_of(spec[:3], mesh)
+    return SH.local_map(lambda *a: (fn(*a),), out_placements=(pq,),
+                        in_placements=(pq, pq, pq, pg, pg))(q, k, v, ipre, fpre)[0]
+
+
 def _apply_mlstm_quadratic(p, x, cfg):
     b, s, d = x.shape
     q, k, v, ipre, fpre, z, _, inner, nh, dk = _mlstm_qkvg(p, x, cfg, d)
-    logf = SH.pointwise(F.logsigmoid, fpre)  # (b, s, h)
+    hout = _per_head(_mlstm_quadratic, q, k, v, ipre, fpre)
+    hout = rms(SH.pin(hout.reshape(b, s, inner)).to(x.dtype))
+    hout = hout * p["norm_scale"] * F.silu(z)
+    return shard_act(linear(hout, p["down"], "embed"), ("batch", "seq", "embed"))
+
+
+def _mlstm_quadratic(q, k, v, ipre, fpre):
+    s = q.shape[1]
+    logf = F.logsigmoid(fpre)  # (b, s, h)
     Fc = torch.cumsum(logf, dim=1)
     Dm = Fc[:, :, None, :] - Fc[:, None, :, :] + ipre[:, None, :, :]  # (b, t, i, h)
-    tri = torch.tril(torch.ones((s, s), dtype=torch.bool, device=x.device))[None, :, :, None]
+    tri = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))[None, :, :, None]
     Dm = torch.where(tri, Dm, -torch.inf)
     m = Dm.amax(dim=2)  # (b, t, h)
     w = torch.exp(Dm - m[:, :, None, :])  # (b, t, i, h)
     qk = torch.einsum("bthk,bihk->btih", q.float(), k.float())
     S = w * qk
     denom = torch.maximum(S.sum(dim=2).abs(), torch.exp(-m))  # (b, t, h)
-    hout = torch.einsum("btih,bihk->bthk", S, v.float()) / denom[..., None]
-    hout = rms(hout.reshape(b, s, inner).to(x.dtype))
-    hout = hout * p["norm_scale"] * F.silu(z)
-    return shard_act(hout @ p["down"], ("batch", "seq", "embed"))
+    return torch.einsum("btih,bihk->bthk", S, v.float()) / denom[..., None]
 
 
 def _apply_mlstm_chunked(p, x, cfg, Q: int):
-    """Chunked parallel mLSTM. Derivation mirrors the decode recurrence:
-    within chunk c, D[j,i] = F_j - F_i + ipre_i; the inter-chunk carry is the
-    stabilized (C, n, m) state; m_j = max(intra max, F_j + m_prev).
+    """Chunked parallel mLSTM: `_mlstm_chunked`'s chunks of Q rows."""
+    b, s, d = x.shape
+    q, k, v, ipre, fpre, z, _, inner, nh, dk = _mlstm_qkvg(p, x, cfg, d)
+    hout = _per_head(functools.partial(_mlstm_chunked, Q=Q), q, k, v, ipre, fpre)
+    hout = SH.pin(hout.reshape(b, s, inner)).to(x.dtype)
+    hout = rms(hout)
+    hout = hout * p["norm_scale"] * F.silu(z)
+    return shard_act(linear(hout, p["down"], "embed"), ("batch", "seq", "embed"))
+
+
+def _mlstm_chunked(q, k, v, ipre, fpre, *, Q: int):
+    """The chunked form over (b, s, h, dk). Derivation mirrors the decode
+    recurrence: within chunk c, D[j,i] = F_j - F_i + ipre_i; the
+    inter-chunk carry is the stabilized (C, n, m) state; m_j = max(intra
+    max, F_j + m_prev).
 
     The last chunk holds the s % Q rows left, where the JAX package pads it
     to Q rows (ipre -1e30, q, k, v zero) for its scan: the real rows' values
     are the same. Its padded rows' stabilizer falls with the forget gates
     through the padding, and past ~130 rows exp(-m) overflows; their outputs
     are cut off, but the JAX package's gradient there is 0 * inf (NaN)."""
-    b, s, d = x.shape
-    q, k, v, ipre, fpre, z, _, inner, nh, dk = _mlstm_qkvg(p, x, cfg, d)
-    logf = SH.pointwise(F.logsigmoid, fpre)
-    C_p = torch.zeros((b, nh, dk, dk), dtype=torch.float32, device=x.device)
-    n_p = torch.zeros((b, nh, dk), dtype=torch.float32, device=x.device)
-    m_p = torch.full((b, nh), -1e30, dtype=torch.float32, device=x.device)
+    b, s, nh, dk = q.shape
+    dev = q.device
+    logf = F.logsigmoid(fpre)
+    C_p = torch.zeros((b, nh, dk, dk), dtype=torch.float32, device=dev)
+    n_p = torch.zeros((b, nh, dk), dtype=torch.float32, device=dev)
+    m_p = torch.full((b, nh), -1e30, dtype=torch.float32, device=dev)
     hs = []
     for c0 in range(0, s, Q):
         rows = slice(c0, min(c0 + Q, s))
@@ -138,8 +173,7 @@ def _apply_mlstm_chunked(p, x, cfg, Q: int):
         Qc = Fj.shape[1]
         # intra-chunk stabilizer/base quantities
         Dmj = Fj[:, :, None, :] - Fj[:, None, :, :] + icj[:, None, :, :]  # (b, j, i, h)
-        tri = torch.tril(torch.ones((Qc, Qc), dtype=torch.bool, device=x.device))[None, :, :,
-                                                                                  None]
+        tri = torch.tril(torch.ones((Qc, Qc), dtype=torch.bool, device=dev))[None, :, :, None]
         Dmj = torch.where(tri, Dmj, -torch.inf)
         m_in = Dmj.amax(dim=2)  # (b, Qc, h)
         # stabilizer: intra vs carry path
@@ -163,10 +197,7 @@ def _apply_mlstm_chunked(p, x, cfg, Q: int):
         n_p = torch.exp(FQ[:, 0] + m_p - m_new)[:, :, None] * n_p + torch.einsum(
             "bih,bihk->bhk", wi, kj)
         m_p = m_new
-    hout = torch.cat(hs, dim=1).reshape(b, s, inner).to(x.dtype)
-    hout = rms(hout)
-    hout = hout * p["norm_scale"] * F.silu(z)
-    return shard_act(hout @ p["down"], ("batch", "seq", "embed"))
+    return torch.cat(hs, dim=1)
 
 
 def init_mlstm_cache(b: int, d: int, cfg, dtype, device="cuda"):
@@ -181,6 +212,20 @@ def init_mlstm_cache(b: int, d: int, cfg, dtype, device="cuda"):
     }
 
 
+def _mlstm_step(q, k, v, ipre, fpre, C, n, m):
+    """One token of the recurrence: q, k, v (b, h, dk) float32, ipre and
+    fpre (b, h), the state (C, n, m) -> (h (b, h, dk), C, n, m)."""
+    logf = F.logsigmoid(fpre)
+    m_new = torch.maximum(logf + m, ipre)
+    fs = torch.exp(logf + m - m_new)[..., None]
+    is_ = torch.exp(ipre - m_new)[..., None]
+    C = fs[..., None] * C + is_[..., None] * torch.einsum("bhk,bhv->bhkv", k, v)
+    n = fs * n + is_ * k
+    num = torch.einsum("bhk,bhkv->bhv", q, C)
+    den = torch.maximum(torch.einsum("bhk,bhk->bh", q, n).abs(), torch.exp(-m_new))
+    return num / den[..., None], C, n, m_new
+
+
 def apply_mlstm_decode(p, x, cache, cfg):
     """Single-token decode. Returns (y, new_cache); `cache` is not written."""
     b, _, d = x.shape
@@ -188,18 +233,24 @@ def apply_mlstm_decode(p, x, cache, cfg):
         p, x, cfg, d, cache["conv"])
     q, k, v = (t[:, 0].float() for t in (q, k, v))  # (b, h, dk)
     ipre, fpre = ipre[:, 0], fpre[:, 0]  # (b, h)
-    logf = SH.pointwise(F.logsigmoid, fpre)
-    m_new = torch.maximum(logf + cache["m"], ipre)
-    fs = torch.exp(logf + cache["m"] - m_new)[..., None]
-    is_ = torch.exp(ipre - m_new)[..., None]
-    C = fs[..., None] * cache["C"] + is_[..., None] * torch.einsum("bhk,bhv->bhkv", k, v)
-    n = fs * cache["n"] + is_ * k
-    num = torch.einsum("bhk,bhkv->bhv", q, C)
-    den = torch.maximum(torch.einsum("bhk,bhk->bh", q, n).abs(), torch.exp(-m_new))
-    hout = (num / den[..., None]).reshape(b, 1, inner).to(x.dtype)
+    args = (q, k, v, ipre, fpre, cache["C"], cache["n"], cache["m"])
+    step = _mlstm_step
+    if SH.is_dtensor(q):
+        # each rank its own rows and heads, as in `_per_head`
+        mesh, rules = SH.current_ctx()
+        bx, hx = axis_spec(q.shape, ("batch", "heads", None), rules.act, SH.mesh_shape(mesh))[:2]
+
+        def pl(t):
+            return SH.placements_of((bx, hx) + (None,) * (t.dim() - 2), mesh)
+
+        args = tuple(SH.replicated(t, mesh) for t in args)
+        step = SH.local_map(_mlstm_step, out_placements=tuple(pl(t) for t in (q,) + args[5:]),
+                            in_placements=tuple(pl(t) for t in args))
+    hh, C, n, m_new = step(*args)
+    hout = hh.reshape(b, 1, inner).to(x.dtype)
     hout = rms(hout)
     hout = hout * p["norm_scale"] * F.silu(z)
-    y = hout @ p["down"]
+    y = linear(hout, p["down"], "embed")
     return y, {"C": C, "n": n, "m": m_new, "conv": conv_state}
 
 
@@ -227,7 +278,7 @@ def _slstm_cell(p, xt, state):
     pre = xt + torch.einsum("bhd,hdkf->bhkf", h, p["R"]) + p["b"]
     zt = torch.tanh(pre[..., 0])
     it = pre[..., 1].float()
-    logf = SH.pointwise(F.logsigmoid, pre[..., 2].float())
+    logf = F.logsigmoid(pre[..., 2].float())
     ot = torch.sigmoid(pre[..., 3])
     m_new = torch.maximum(logf + m, it)
     i_s = torch.exp(it - m_new)
@@ -236,6 +287,38 @@ def _slstm_cell(p, xt, state):
     n_new = f_s * n + i_s
     h_new = (ot.float() * c_new / torch.clamp(n_new, min=1e-6)).to(zt.dtype)
     return c_new, n_new, m_new, h_new
+
+
+def _slstm_loop(xw, R, bias, *state):
+    """The recurrence over xw (b, s, nh, hd, 4) from `state`: (the hidden
+    states (b, s, nh, hd), c, n, m, h)."""
+    p = {"R": R, "b": bias}
+    hs = []
+    for t in range(xw.shape[1]):
+        state = _slstm_cell(p, xw[:, t], state)
+        hs.append(state[3])
+    return (torch.stack(hs, dim=1),) + tuple(state)
+
+
+def _slstm_steps(xw, R, bias, state):
+    """`_slstm_loop` as (hidden states, state); on a mesh each rank steps
+    through its own batch rows and heads (`local_map`: the recurrence is
+    independent per sequence and per head, R being block-diagonal), where
+    DTensor would dispatch every op of every step."""
+    if not SH.is_dtensor(xw):
+        out = _slstm_loop(xw, R, bias, *state)
+        return out[0], out[1:]
+    mesh, rules = SH.current_ctx()
+    bx, _, hx = axis_spec(xw.shape, ("batch", None, "heads", None, None), rules.act,
+                          SH.mesh_shape(mesh))[:3]
+    pst = SH.placements_of((bx, hx, None), mesh)
+    loop = SH.local_map(_slstm_loop,
+                        out_placements=(SH.placements_of((bx, None, hx, None), mesh),) + (pst,) * 4,
+                        in_placements=(SH.placements_of((bx, None, hx, None, None), mesh),
+                                       SH.placements_of((hx, None, None, None), mesh),
+                                       SH.placements_of((hx, None, None), mesh)) + (pst,) * 4)
+    out = loop(xw, *(SH.replicated(t, mesh) for t in (R, bias) + tuple(state)))
+    return out[0], out[1:]
 
 
 def init_slstm_state(b: int, d: int, cfg, dtype, device="cuda"):
@@ -252,18 +335,18 @@ def init_slstm_state(b: int, d: int, cfg, dtype, device="cuda"):
 def apply_slstm(p, x, cfg, state=None):
     """x: (b, s, d). A loop over time (true recurrence). Returns (y, state)."""
     b, s, d = x.shape
+    x = gather_seq(x)  # the loop steps through the whole sequence
     if state is None:
         state = init_slstm_state(b, d, cfg, x.dtype, x.device)
-    xw = torch.einsum("bsd,dhkf->bshkf", x, p["W"])  # f = 4 gates
-    hs = []
-    for t in range(s):
-        state = _slstm_cell(p, xw[:, t], state)
-        hs.append(state[3])
-    h = torch.stack(hs, dim=1).reshape(b, s, d)
+    xw = contract("bsd,dhkf->bshkf", x, p["W"], 1,
+                  ("batch", None, "heads", None, None))  # f = 4 gates
+    hs, state = _slstm_steps(xw, p["R"], p["b"], state)
+    h = SH.pin(hs.reshape(b, s, d))
     h = rms(h)
-    h = (h * p["out_norm"]) @ p["out_proj"]
+    h = linear(h * p["out_norm"], p["out_proj"], "embed")
     # jax.nn.gelu's default is the tanh approximation
-    h = h + F.gelu(h @ p["mlp_wi"], approximate="tanh") @ p["mlp_wd"]
+    h = h + linear(F.gelu(linear(h, p["mlp_wi"], "mlp"), approximate="tanh"), p["mlp_wd"],
+                   "embed")
     return shard_act(h, ("batch", "seq", "embed")), state
 
 

@@ -60,7 +60,9 @@ def batch_shardings(cfg: ArchConfig, mesh, rules: SH.ShardingRules, kind: str):
 def place_batch(batch, mesh, rules: SH.ShardingRules):
     """Each batch tensor on the mesh, its leading dim sharded over the
     batch's axes as far as the dim divides (the spec builder's fallback:
-    trailing axes dropped, or replicated)."""
+    trailing axes dropped, or replicated). The sequence enters whole, as in
+    the JAX package's in-shardings, with `seq_shard` too: the embedding's
+    constraint splits it."""
     sizes = SH.mesh_shape(mesh)
     return {k: SH.place(v, SH.NamedSharding(
                 mesh, axis_spec(v.shape, ("batch",) + (None,) * (v.dim() - 1), rules.act, sizes)))

@@ -2,9 +2,11 @@
 `named_shardings` on the production meshes, the roofline terms, the report
 tables — held against the JAX package's.
 
-The port's side runs in subprocesses, each the rank 0 of a fake process
-group (`torch.testing._internal.distributed.fake_pg`) that owns its
-process's default group; the JAX side in subprocesses with 512 or 8
+The dry run shards train and prefill activations' sequence over 'model'
+(`seq_shard`), as the JAX package's does. The port's side runs in
+subprocesses, each the rank 0 of a fake process group
+(`torch.testing._internal.distributed.fake_pg`) that owns its process's
+default group; the JAX side in subprocesses with 512 or 8
 placeholder host devices (`conftest.run_subtest`'s flag), nothing compiled.
 All of them start together, so the file's wall time is its slowest one's.
 """
@@ -78,7 +80,9 @@ for mp in (False, True):
 print("JSON" + json.dumps(out))
 '''
 
-# the reduced cells of the JAX package's test_dryrun_tiny_both_meshes
+# the reduced cells of the JAX package's test_dryrun_tiny_both_meshes (the
+# dry run shards train and prefill activations' seq over 'model', as the
+# JAX package's does)
 PORT_DRYRUN = r'''
 import json, sys, torch
 torch.set_num_threads(1)
@@ -96,6 +100,27 @@ for arch in sys.argv[2].split(","):
         print(tag, rec["status"], rec.get("error", ""), flush=True)
 '''
 
+# the four archs' prefill_32k cells on (2, 4), and the olmo-1b train cell
+# there without sequence sharding
+PORT_DRYRUN_MORE = r'''
+import json, sys, torch
+torch.set_num_threads(1)
+from repro_torch.configs.base import get_reduced_config
+from repro_torch.launch import dryrun as DR
+out = sys.argv[1]
+mesh = ((2, 4), ("data", "model"))
+cells = [(arch, "prefill_32k", None) for arch in sys.argv[2].split(",")]
+cells.append(("olmo-1b", "train_4k", {"act": {"seq": None}}))
+for arch, shape, over in cells:
+    rec = DR.run_cell(arch, shape, False, cfg=get_reduced_config(arch),
+                      shape=DR.REDUCED_SHAPES[shape], mesh_dims=mesh, microbatches=1,
+                      rule_overrides=over)
+    tag = f"{arch}__{shape}__single" + ("__noseq" if over else "")
+    with open(f"{out}/{tag}.json", "w") as f:
+        json.dump(rec, f)
+    print(tag, rec["status"], rec.get("error", ""), flush=True)
+'''
+
 # the JAX package's in-shardings of the reduced olmo-1b train cell on (2, 4)
 JAX_ARG_BYTES = r'''
 import json, math, jax, jax.numpy as jnp
@@ -108,15 +133,19 @@ from repro.train import step as STEP
 from repro.train.optimizer import AdamW
 cfg = get_reduced_config("olmo-1b")
 mesh = make_mesh((2, 4), ("data", "model"))
-rules = SH.default_rules()
-_, psh, bsh = STEP.build_train_step(cfg, mesh, rules, AdamW(master_weights=True))
-tmpl = M.template(cfg)
-shapes = [l.shape for l in jax.tree_util.tree_leaves(tmpl, is_leaf=lambda x: isinstance(x, P))]
-shs = jax.tree_util.tree_leaves(psh, is_leaf=lambda x: isinstance(x, jax.sharding.NamedSharding))
-param = sum(math.prod(s.shard_shape(shape)) for s, shape in zip(shs, shapes))
-batch = math.prod(bsh["tokens"].shard_shape((4, 33)))
-# bf16 parameters; float32 mu, nu and master; the int32 step; the int32 batch
-print("JSON" + json.dumps(param * 2 + 3 * param * 4 + 4 + batch * 4))
+out = {}
+for seq_shard in (False, True):
+    rules = SH.default_rules(seq_shard=seq_shard)
+    _, psh, bsh = STEP.build_train_step(cfg, mesh, rules, AdamW(master_weights=True))
+    tmpl = M.template(cfg)
+    shapes = [l.shape for l in jax.tree_util.tree_leaves(tmpl, is_leaf=lambda x: isinstance(x, P))]
+    shs = jax.tree_util.tree_leaves(psh,
+                                    is_leaf=lambda x: isinstance(x, jax.sharding.NamedSharding))
+    param = sum(math.prod(s.shard_shape(shape)) for s, shape in zip(shs, shapes))
+    batch = math.prod(bsh["tokens"].shard_shape((4, 33)))
+    # bf16 parameters; float32 mu, nu and master; the int32 step; the int32 batch
+    out[str(int(seq_shard))] = param * 2 + 3 * param * 4 + 4 + batch * 4
+print("JSON" + json.dumps(out))
 '''
 
 
@@ -146,15 +175,27 @@ def _json(out):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("dryrun")
+    more = out / "more"  # report.load(out) reads out's own records alone
+    more.mkdir()
     procs = {
         "jax_specs": _start(JAX_SPECS, jax_devices=512),
         "port_specs": _start(PORT_SPECS),
         "dry_a": _start(PORT_DRYRUN, str(out), "olmo-1b,zamba2-2.7b"),
         "dry_b": _start(PORT_DRYRUN, str(out), "mixtral-8x7b,whisper-large-v3"),
+        "dry_more": _start(PORT_DRYRUN_MORE, str(more), ",".join(ARCHS)),
         "jax_bytes": _start(JAX_ARG_BYTES, jax_devices=8),
     }
     res = {k: _finish(p) for k, p in procs.items()}
     return out, res
+
+
+@pytest.fixture(scope="module")
+def more(runs):
+    """The records of PORT_DRYRUN_MORE's cells."""
+    from repro_torch.launch import report
+
+    out, _ = runs
+    return report.load(out / "more")
 
 
 def test_named_shardings_equal_the_jax_package_on_both_production_meshes(runs):
@@ -170,7 +211,8 @@ def test_named_shardings_equal_the_jax_package_on_both_production_meshes(runs):
 
 def test_dryrun_reduced_cells_on_both_fake_meshes(runs):
     """The four reduced archs' train step traced on (2, 4) and (2, 2, 2)
-    fake meshes: status ok, collectives counted, memory and FLOPs
+    fake meshes with the sequence sharded over 'model' (the JAX package's
+    seq_shard=True): status ok, collectives counted, memory and FLOPs
     recorded."""
     out, _ = runs
     for arch in ARCHS:
@@ -189,12 +231,37 @@ def test_dryrun_reduced_cells_on_both_fake_meshes(runs):
 
 
 def test_dryrun_argument_bytes_equal_the_jax_in_shardings(runs):
-    """olmo-1b reduced on (2, 4): the local shards of the bf16 parameters,
-    the float32 optimizer state and the int32 batch the dry run counts are
-    the bytes of the JAX package's in-shardings' shard shapes."""
+    """olmo-1b reduced on (2, 4), its sequence (32) sharded over 'model':
+    the local shards of the bf16 parameters, the float32 optimizer state
+    and the int32 batch the dry run counts are the bytes of the JAX
+    package's in-shardings' shard shapes with seq_shard=True."""
     out, res = runs
     rec = json.loads((out / "olmo-1b__train_4k__single.json").read_text())
-    assert rec["memory"]["argument_bytes_per_device"] == _json(res["jax_bytes"])
+    assert rec["memory"]["argument_bytes_per_device"] == _json(res["jax_bytes"])["1"]
+
+
+def test_dryrun_argument_bytes_without_seq_sharding_equal_the_jax_in_shardings(runs, more):
+    """The same cell traced with the sequence whole (rule override seq None)
+    has the bytes of the JAX package's in-shardings with seq_shard=False:
+    the batch enters with its sequence whole either way."""
+    _, res = runs
+    rec = more["olmo-1b__train_4k__single__noseq"]
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["memory"]["argument_bytes_per_device"] == _json(res["jax_bytes"])["0"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dryrun_reduced_prefill_cells_with_seq_sharding(more, arch):
+    """Each of the four archs' prefill_32k cell (reduced: b=4, s=32) traced
+    on a (2, 4) fake mesh with the sequence sharded over 'model': status
+    ok, collectives counted, its arguments within its live peak, FLOPs
+    recorded."""
+    rec = more[f"{arch}__prefill_32k__single"]
+    assert rec["status"] == "ok", (arch, rec.get("error"), rec.get("traceback"))
+    assert rec["chips"] == 8 and sum(rec["collectives"]["counts"].values()) > 0
+    mem = rec["memory"]
+    assert 0 < mem["argument_bytes_per_device"] <= mem["live_bytes_per_device"]
+    assert rec["cost_analysis"]["flops_per_device"] > 0
 
 
 def test_roofline_terms_follow_the_reference_formula_with_h100_constants():
@@ -245,11 +312,21 @@ def test_report_tables_on_the_ports_records(runs):
     assert all("| ok |" in row and "| yes |" in row for row in single[2:] + multi[2:])
     roof = report.roofline_table(recs).splitlines()
     assert len(roof) == 2 + len(ARCHS)
+    # both meshes: a row an arch x shape, each mesh's cells side by side
+    both = report.dryrun_table(recs, "__single", "__multi").splitlines()
+    assert len(both) == 2 + len(ARCHS)
+    assert both[0].count("16x16 status") == 2
+    assert all(row.count("| ok |") == 2 and row.count("| yes |") == 2 for row in both[2:])
+    assert all(row.startswith(one[:-1]) for row, one in zip(both[2:], single[2:]))
     # a skipped and a failed record have rows of their own
     recs["x__train_4k__single"] = {"status": "skipped", "reason": "no long context"}
     recs["y__train_4k__single"] = {"status": "FAILED", "error": "RuntimeError: boom"}
     rows = report.dryrun_table(recs, "__single")
     assert "| x | train_4k | skipped |" in rows and "| y | train_4k | **FAILED** |" in rows
+    assert "| no long context |" in rows and "| RuntimeError: boom |" in rows
+    both = report.dryrun_table(recs, "__single", "__multi")
+    assert "| x | train_4k | skipped |" in both and "| y | train_4k | **FAILED** |" in both
+    assert both.count("not run") == 2  # neither has a multi-pod record
     assert report.summarize(recs)["failed"] == 1
     # the memory deltas: none against itself
     assert report.memory_delta_table(recs, recs).count("\n") == 1
