@@ -33,6 +33,7 @@ from ..core.hash_join import phj_join_checked
 from ..core.table import KEY_SENTINEL, Table, concat_tables
 from ..kernels._build import KernelError
 from ..obs import metrics
+from ..obs import trace as obs_trace
 from ..resilience import escalation, faults
 from . import membudget
 from . import physical as P
@@ -107,9 +108,20 @@ def execute(node: P.PhysNode, tables: Mapping[str, Table], counts=None):
 
     `counts` (optional ``{table_name: valid_count}``) marks only the first
     rows of a table valid (the morsel driver's chunks); without it, a
-    scan's whole table is valid."""
+    scan's whole table is valid.
+
+    Each node's call is an `exec.<op>` span of the recorder (obs.trace)
+    while it is on; a node's span holds its children's."""
     if isinstance(node, Materialized):
         return node.value
+    with obs_trace.node_span(node) as rec:
+        out = _execute_node(node, tables, counts)
+        if rec is not None:
+            rec.attrs["rows_out"] = out[1]
+    return out
+
+
+def _execute_node(node: P.PhysNode, tables: Mapping[str, Table], counts=None):
     if isinstance(node, P.PScan):
         t = tables[node.table]
         if counts is not None and node.table in counts:
@@ -291,7 +303,6 @@ def audit(plan: "P.PhysicalPlan",
     from ..analysis import contracts as C
     from ..analysis import dispatch_audit as A
 
-    metrics.counter("engine.contract_audits").inc()
     tables = dict(tables if tables is not None else plan.catalog.tables)
     reports: dict = {}
     entries: list[NodeAudit] = []
@@ -359,7 +370,10 @@ def run(plan: "P.PhysicalPlan", tables: Mapping[str, Table] | None = None,
     the executor re-plans ONCE via `physical.degrade_plan` (doubled
     capacities, sort/smj strategies) and reruns. Programming errors and
     kernel failures (`_NON_DEGRADABLE`) and failures of an
-    already-degraded plan re-raise untouched."""
+    already-degraded plan re-raise untouched.
+
+    The untraced run is an `exec.run` span of the recorder (obs.trace),
+    its attribute `degraded` whether a degraded plan answered."""
     if trace:
         if counts is not None or checked:
             raise ValueError("trace=True does not support counts= or checked= (the "
@@ -368,6 +382,11 @@ def run(plan: "P.PhysicalPlan", tables: Mapping[str, Table] | None = None,
         from ..obs.trace import trace_execute
 
         return trace_execute(plan, tables, iters=trace_iters, warmup=trace_warmup)
+    with obs_trace.span("exec.run", device=False, degraded=bool(plan.degraded)) as rec:
+        return _run(plan, tables, checked, counts, rec)
+
+
+def _run(plan, tables, checked, counts, rec):
     tables = dict(tables if tables is not None else plan.catalog.tables)
 
     def attempt(p: "P.PhysicalPlan"):
@@ -399,6 +418,8 @@ def run(plan: "P.PhysicalPlan", tables: Mapping[str, Table] | None = None,
                 plan.degraded_plan = P.degrade_plan(plan, reason)
         metrics.counter("resilience.plan_degradations").inc()
         escalation.record_degradation("executor", reason)
+        if rec is not None:
+            rec.attrs["degraded"] = True
         return attempt(plan.degraded_plan)
 
 
@@ -443,7 +464,8 @@ def run_morsels(plan: "P.PhysicalPlan",
         mcounts = dict(base_counts)
         mcounts[axis] = cnt
         metrics.counter("engine.morsel_runs").inc()
-        parts.append(run(mp, mtables, checked=checked, counts=mcounts))
+        with obs_trace.span("exec.morsel", device=False, index=i, rows=cnt):
+            parts.append(run(mp, mtables, checked=checked, counts=mcounts))
     return _recombine(plan.root, parts)
 
 

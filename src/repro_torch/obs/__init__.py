@@ -1,7 +1,10 @@
 """repro_torch.obs — observability of the port: per-node trace spans
 (`trace`: `executor.run(..., trace=True)`, a QueryTrace exportable as JSON
 and as Chrome trace events, and the shared `timed_call`/`median_wall`
-timing primitive), the counter and histogram registry (`metrics`),
+timing primitive), the span recorder (`trace.span`, `trace.recorded()`:
+the server's and the executor's phases on the path that runs, on under a
+torch profiler or `trace.recording()`), the counter and histogram registry
+(`metrics`),
 measured-vs-modeled residuals with the regret check (`residuals`) and the
 calibration store keyed by backend fingerprint (`calibration`).
 

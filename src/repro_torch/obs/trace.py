@@ -21,20 +21,31 @@ exportable as JSON (`as_dict`/`to_json`) and as Chrome trace-event format
 (`chrome_trace`/`to_chrome_trace` — loadable in Perfetto / about:tracing).
 
 Tracing is strictly opt-in: `executor.run(plan)` without `trace=True`
-calls nothing here, allocates no `Span` and enters no dispatch mode. A
+runs no node alone, allocates no `Span` and enters no dispatch mode. A
 traced run pays a device sync per node that the untraced run does not;
 `overhead_bound_s` quantifies the slack the trace itself claims
 (per-node dispatch/sync floor + a relative term), and the traced run times
 the untraced plan too (`e2e_wall_s`), so every trace carries its own
 measured-vs-attributed comparison.
+
+The span recorder (`span`, `begin`/`end`, `recorded`) times the program's
+own phases where they run, on whatever path runs them: the query server's
+phases of each request and each plan node's call in `executor.execute`,
+untraced runs included. It is on only while a torch profiler runs or
+inside `recording()`; off, a span costs one flag check.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import contextvars
 import dataclasses
 import json
 import time
 
 import torch
+
+from . import metrics
 
 from ..core.table import tensors_of
 
@@ -104,6 +115,229 @@ def sync_floor(iters: int = 5, device="cpu") -> float:
     del y
     ts.sort()
     return ts[len(ts) // 2]
+
+
+# ---------------------------------------------------------------------------
+# the span recorder: the program's phases, timed in place
+# ---------------------------------------------------------------------------
+# Spans kept, newest last. A 30 s window of the benchmark records at most
+# about 4,000 (Q18 served to four clients: 360 queries x 11; the star query
+# 108 x 17). A span past the cap pushes out the oldest and counts
+# `obs.spans_dropped`.
+RING_CAP = 16384
+
+_ring: collections.deque = collections.deque(maxlen=RING_CAP)
+_forced = 0  # open `recording()` blocks
+_profiler_enabled = torch._C._autograd._profiler_enabled
+# the innermost open context-manager span: its children's parent, whose
+# request id they carry
+_CURRENT = contextvars.ContextVar("repro_torch_span", default=None)
+_INHERIT = object()
+
+
+class SpanRecord:
+    """One recorded interval of the program.
+
+    Host start and end are `time.perf_counter_ns()` (the clock of the
+    server's `submitted_at`). On a card, a start and an end CUDA event on
+    the current stream bound a device span's interval, read only when
+    asked for (`device_ms`). Each event costs the host tens of microseconds
+    there, so only spans whose device time is read take them (the padding,
+    each plan node's own call but a scan's); the rest are host spans
+    (`device=False`). `qid` is the request the span served (None outside a
+    request); `parent` the span it opened under. `attrs` holds small
+    values; a plan node's `rows_out` is its 0-d count tensor, turned into a
+    number only when read.
+
+    Used as a context manager (`span`), it opens on entry; `begin` opens
+    it at once."""
+
+    __slots__ = ("name", "parent", "qid", "attrs", "t0_ns", "t1_ns", "children",
+                 "_device", "_ev0", "_ev1", "_rf", "_token")
+
+    # allocation counter pinning the off path: with the recorder off no
+    # SpanRecord is ever made (tests/test_torch_spans.py)
+    allocated = 0
+
+    def __init__(self, name: str, parent, qid, attrs: dict, device: bool = True):
+        SpanRecord.allocated += 1
+        self.name, self.parent, self.qid, self.attrs = name, parent, qid, attrs
+        self.children: list = []
+        self._device = device
+        self._ev0 = self._ev1 = self._rf = None
+        self.t0_ns = self.t1_ns = None
+
+    def _open(self) -> None:
+        if self.parent is _INHERIT:
+            self.parent = _CURRENT.get()
+        parent = self.parent
+        if self.qid is _INHERIT:
+            self.qid = None if parent is None else parent.qid
+        first = parent is not None and not parent.children
+        if parent is not None:
+            parent.children.append(self)
+        if self._device and torch.cuda.is_initialized():
+            if first and parent._ev0 is not None:
+                # a device span launches nothing before its first child
+                # opens (a plan node runs its inputs first): same start
+                self._ev0 = parent._ev0
+            else:
+                self._ev0 = torch.cuda.Event(enable_timing=True)
+                self._ev0.record()
+        self.t0_ns = time.perf_counter_ns()
+
+    def _close(self, attrs: dict) -> None:
+        if self._ev0 is not None:
+            self._ev1 = torch.cuda.Event(enable_timing=True)
+            self._ev1.record()
+        self.t1_ns = time.perf_counter_ns()
+        self.attrs.update(attrs)
+        if len(_ring) == RING_CAP:
+            metrics.counter("obs.spans_dropped").inc()
+        _ring.append(self)
+
+    def __enter__(self) -> "SpanRecord":
+        if _profiler_enabled():
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        self._open()
+        self._token = _CURRENT.set(self)
+        return self
+
+    def __exit__(self, et, ev, tb):
+        _CURRENT.reset(self._token)
+        self._close({} if et is None else {"error": et.__name__})
+        if self._rf is not None:
+            self._rf.__exit__(et, ev, tb)
+        return False
+
+    @property
+    def host_ms(self) -> float:
+        return (self.t1_ns - self.t0_ns) / 1e6
+
+    @property
+    def device_ms(self) -> float | None:
+        """Milliseconds between the span's two events on the device; None
+        off a card and for host-only spans. Waits for the end event if the
+        device has not reached it yet."""
+        if self._ev1 is None:
+            return None
+        self._ev1.synchronize()
+        return self._ev0.elapsed_time(self._ev1)
+
+    @property
+    def ms(self) -> float:
+        """The device interval, the host interval where there is none."""
+        d = self.device_ms
+        return self.host_ms if d is None else d
+
+    @property
+    def self_ms(self) -> float:
+        """`ms` less its closed child spans': the span's own work. On the
+        device a host child counts nothing."""
+        kids = [c for c in self.children if c.t1_ns is not None]
+        d = self.device_ms
+        if d is None:
+            return self.host_ms - sum(c.host_ms for c in kids)
+        return d - sum(c.device_ms or 0.0 for c in kids)
+
+    @property
+    def rows_out(self) -> int | None:
+        v = self.attrs.get("rows_out")
+        return None if v is None else int(v)
+
+
+def on() -> bool:
+    """Whether spans are recorded: a torch profiler runs, or a
+    `recording()` block is open."""
+    return bool(_forced) or _profiler_enabled()
+
+
+@contextlib.contextmanager
+def recording():
+    """Records spans within the block, with or without a profiler."""
+    global _forced
+    _forced += 1
+    try:
+        yield
+    finally:
+        _forced -= 1
+
+
+def recorded() -> list:
+    """The closed spans the ring holds, in the order they closed."""
+    return list(_ring)
+
+
+def reset() -> None:
+    _ring.clear()
+
+
+def to_unix_ns(perf_ns: int) -> int:
+    """A `perf_counter_ns()` reading on the Unix-epoch clock of the
+    profiler's trace events."""
+    return perf_ns + time.time_ns() - time.perf_counter_ns()
+
+
+class _Off:
+    """The span of an off recorder: does nothing, yields None."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str, *, parent=_INHERIT, qid=_INHERIT, device: bool = True, **attrs):
+    """A context manager recording the block as a span named `name`, with
+    `attrs`; it yields the SpanRecord (None when the recorder is off). The
+    parent defaults to the innermost open span and the request id to its
+    parent's; spans opened inside the block are this one's children.
+    `device=False` makes a host span, with no events. A device span's
+    children are device spans or host spans that launch nothing, and it
+    launches nothing before its first child opens, which shares its start
+    event. Under a profiler the block is also a
+    `torch.profiler.record_function` of the same name, so the profiler's
+    trace shows it beside the kernels it launched."""
+    if not (_forced or _profiler_enabled()):
+        return _OFF
+    return SpanRecord(name, parent, qid, attrs, device)
+
+
+def begin(name: str, *, parent=None, qid=None, **attrs) -> SpanRecord | None:
+    """Opens a host span that a later call closes with `end` (a request's
+    time in the queue); None when the recorder is off. It is no parent of
+    the spans opened after it unless they name it, and enters no
+    `record_function`: it lives in the ring only."""
+    if not (_forced or _profiler_enabled()):
+        return None
+    rec = SpanRecord(name, parent, qid, attrs, device=False)
+    rec._open()
+    return rec
+
+
+def end(rec: SpanRecord | None, **attrs) -> None:
+    """Closes a span `begin` opened; nothing for None or a closed span."""
+    if rec is not None and rec.t1_ns is None:
+        rec._close(attrs)
+
+
+def node_span(node):
+    """`span` of a plan node's own call, `exec.<op>`, with its strategy and
+    capacity; a scan launches nothing. The caller sets `rows_out` on the
+    yielded record."""
+    if not (_forced or _profiler_enabled()):
+        return _OFF
+    op = op_of(node)
+    return SpanRecord(f"exec.{op}", _INHERIT, _INHERIT,
+                      {"strategy": strategy_of(node), "capacity": int(node.capacity)},
+                      op != "scan")
 
 
 @dataclasses.dataclass

@@ -57,6 +57,16 @@ grammar) is activated around ITS planning/execution only, and the
 host-side sites `qserve.plan` / `qserve.execute` can be targeted by
 `raise:` specs (`oom:qserve.admit` / `oom:executor.run` inject
 allocation failures). See serve/chaos.py for the soak harness.
+
+Spans (obs.trace's recorder, on under a profiler or `trace.recording()`),
+each carrying the request's `qid`: `qserve.request` from submission to
+its finish, whatever the outcome; under it `qserve.queued` from submission
+to the start of its run (planning and admission in it: `qserve.plan`, a
+lookup or an optimization and sizing, and `qserve.admit`, each bytes
+reservation tried) and `qserve.run`, the run and its fallbacks, which
+holds `qserve.pad` and the executor's `exec.*` spans. `qserve.tick` is
+each `step`. The padding and the plan nodes' spans have device intervals;
+the rest are host spans.
 """
 from __future__ import annotations
 
@@ -74,6 +84,7 @@ from ..engine import membudget as MB
 from ..engine import physical as P
 from ..engine import stats as S
 from ..obs import metrics
+from ..obs import trace
 from ..resilience import escalation, faults
 
 MIN_BUCKET = 64  # smallest capacity bucket
@@ -270,6 +281,9 @@ class QueryRequest:
     # max_queue slot (DESIGN.md §15)
     ticks_deferred: int = 0
     plan_wall_s: float = 0.0
+    # host seconds of the run, fallbacks included, with no device sync:
+    # the host's enqueueing, not the device's work (that is in the device
+    # intervals of the run's `qserve.pad` and `exec.*` spans)
     exec_wall_s: float = 0.0
     # host seconds from submission to the start of the run (planning
     # included), and to the end of the run
@@ -278,6 +292,10 @@ class QueryRequest:
     submitted_at: float = 0.0  # time.perf_counter() at submission
     escalations: int = 0  # safe-path degrade-level escalations
     morsels: int = 1  # morsel factor the result was produced at (1 = whole)
+    # the open `qserve.request` and `qserve.queued` spans (None while the
+    # recorder is off)
+    request_span: object = dataclasses.field(default=None, init=False, repr=False)
+    queued_span: object = dataclasses.field(default=None, init=False, repr=False)
 
 
 @dataclasses.dataclass
@@ -378,11 +396,15 @@ class QueryServer:
     def submit(self, req: QueryRequest) -> None:
         req.submit_tick = self.tick
         req.submitted_at = time.perf_counter()
+        req.request_span = trace.begin("qserve.request", qid=req.qid)
+        req.queued_span = trace.begin("qserve.queued", parent=req.request_span,
+                                      qid=req.qid)
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             req.error, req.done, req.done_tick = "shed", True, self.tick
             metrics.counter("qserve.shed").inc()
             escalation.record_degradation(
                 "qserve", f"shed qid={req.qid}: queue full ({self.max_queue})")
+            self._end_spans(req)
             self.completed.append(req)
             return
         metrics.counter("qserve.submitted").inc()
@@ -392,10 +414,19 @@ class QueryServer:
         return (faults.inject(req.fault_spec) if req.fault_spec
                 else contextlib.nullcontext())
 
-    def _finish(self, req: QueryRequest, error: str, detail: str = "") -> None:
+    def _finish(self, req: QueryRequest, error: str, detail: str = "", *,
+                end_spans: bool = True) -> None:
         req.error, req.done, req.done_tick = error, True, self.tick
         req.detail = detail[:200]
+        if end_spans:
+            self._end_spans(req)
         self.completed.append(req)
+
+    @staticmethod
+    def _end_spans(req: QueryRequest) -> None:
+        trace.end(req.queued_span, ticks_deferred=req.ticks_deferred)
+        trace.end(req.request_span, signature=req.signature, path=req.path,
+                  morsels=req.morsels, error=req.error)
 
     def _sweep_deadlines(self) -> None:
         overdue = [r for r in self.queue + self.deferred
@@ -410,6 +441,14 @@ class QueryServer:
             self._finish(req, "deadline")
 
     def _ensure_entry(self, req: QueryRequest) -> PlanEntry:
+        with trace.span("qserve.plan", parent=req.queued_span, qid=req.qid,
+                        device=False) as rec:
+            entry = self._lookup_or_plan(req)
+            if rec is not None:
+                rec.attrs["hit"] = entry.hits > 0  # a fresh entry has none
+        return entry
+
+    def _lookup_or_plan(self, req: QueryRequest) -> PlanEntry:
         t0 = time.perf_counter()
         sig, buckets = plan_signature(req.plan, req.tables)
         req.signature = sig
@@ -486,12 +525,18 @@ class QueryServer:
         `budget - reserved`. The `oom:qserve.admit` fault site models an
         allocation race lost at admission — an injected hit counts as a
         failed reservation (the request defers), never as an error."""
-        try:
-            with self._fault_ctx(req):
-                faults.check_oom("qserve.admit")
-        except faults.OOMInjected:
-            return False
-        return self.budget.try_reserve(f"q{req.qid}", entry.peak_bytes)
+        with trace.span("qserve.admit", parent=req.queued_span, qid=req.qid,
+                        device=False, bytes=entry.peak_bytes) as rec:
+            try:
+                with self._fault_ctx(req):
+                    faults.check_oom("qserve.admit")
+            except faults.OOMInjected:
+                ok = False
+            else:
+                ok = self.budget.try_reserve(f"q{req.qid}", entry.peak_bytes)
+            if rec is not None:
+                rec.attrs["reserved"] = ok
+        return ok
 
     def _admit(self) -> list[QueryRequest]:
         batch: list[QueryRequest] = []
@@ -569,8 +614,9 @@ class QueryServer:
 
     # -- execution -----------------------------------------------------------
     def _pad_inputs(self, entry: PlanEntry, req: QueryRequest):
-        padded = {n: pad_table(t, entry.buckets[n])
-                  for n, t in req.tables.items()}
+        with trace.span("qserve.pad"):
+            padded = {n: pad_table(t, entry.buckets[n])
+                      for n, t in req.tables.items()}
         counts = {n: t.num_rows for n, t in req.tables.items()}
         return padded, counts
 
@@ -670,6 +716,13 @@ class QueryServer:
         return self._run_safe(entry, req)
 
     def _run_one(self, req: QueryRequest) -> None:
+        trace.end(req.queued_span, ticks_deferred=req.ticks_deferred)
+        with trace.span("qserve.run", parent=req.request_span, qid=req.qid,
+                        device=False):
+            self._run_request(req)
+        self._end_spans(req)  # the request's span holds its run's
+
+    def _run_request(self, req: QueryRequest) -> None:
         entry = self.cache[req.signature]
         breaker = self.breakers[req.signature]
         t0 = time.perf_counter()
@@ -698,14 +751,15 @@ class QueryServer:
                             metrics.counter("qserve.failed").inc()
                             req.exec_wall_s = time.perf_counter() - t0
                             self._finish(req, "failed",
-                                         f"{type(e2).__name__}: {e2}")
+                                         f"{type(e2).__name__}: {e2}",
+                                         end_spans=False)
                             return
                     else:
                         breaker.record_safe_failure(self.tick)
                         metrics.counter("qserve.failed").inc()
                         req.exec_wall_s = time.perf_counter() - t0
                         self._finish(req, "failed",
-                                     f"{type(e).__name__}: {e}")
+                                     f"{type(e).__name__}: {e}", end_spans=False)
                         return
                 else:
                     if route == "fast":
@@ -721,25 +775,20 @@ class QueryServer:
         req.path = route
         req.done, req.done_tick = True, self.tick
         metrics.counter("qserve.completed").inc()
-        metrics.histogram("qserve.exec_wall_s").observe(req.exec_wall_s)
-        metrics.histogram("qserve.latency_ticks").observe(
-            self.tick - req.submit_tick + 1)
         self.completed.append(req)
 
     # -- the loop ------------------------------------------------------------
     def step(self) -> bool:
         """One server tick. Returns True if any work happened or remains."""
         self.tick += 1
-        self._sweep_deadlines()
-        batch = self._admit()
-        # the post-admission ledger is the tick's high-water mark: every
-        # ticket bought this tick is reserved, nothing has released yet
-        metrics.histogram("qserve.bytes_reserved").observe(
-            float(self.budget.reserved))
-        for req in self.deferred:
-            req.ticks_deferred += 1
-        for req in batch:
-            self._run_one(req)
+        with trace.span("qserve.tick", parent=None, qid=None, device=False,
+                        tick=self.tick):
+            self._sweep_deadlines()
+            batch = self._admit()
+            for req in self.deferred:
+                req.ticks_deferred += 1
+            for req in batch:
+                self._run_one(req)
         return bool(batch) or bool(self.queue) or bool(self.deferred)
 
     def run(self, max_ticks: int = 100_000) -> int:
