@@ -87,7 +87,9 @@
    ratio). The per-tile histograms have a row for each of the join plan's
    first pass (256 bins), the group-by's first pass (257) and the join
    plan's last pass (8); the rank kernel is also timed at 257 and 8 bins.
-   The probe runs on the join's partitioned key columns. The segmented
+   The probe runs on the join's partitioned key columns, and again as a
+   served query runs it (3s): both columns padded to their buckets, the
+   padding's KEY_SENTINEL rows after the last partition. The segmented
    sums must equal their plain version bit for bit (keys, sums, counts and
    the number of partials), and a second launch must give the same bytes.
    The gather has a row for each of PHJ-OM's two maps (build side, probe
@@ -1934,7 +1936,7 @@ def main() -> None:
     from repro_torch.engine import physical as PH
     from repro_torch.obs import CalibrationStore, Span, backend_fingerprint, metrics, residuals_of
     from repro_torch.resilience import escalation, faults
-    from repro_torch.serve import QueryRequest, QueryServer
+    from repro_torch.serve import QueryRequest, QueryServer, bucket_rows
     from repro_torch.serve.chaos import run_chaos
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2842,6 +2844,38 @@ def main() -> None:
            probe_bytes, live_build + n_s, plain_reps=3)
     check(int(hit.sum()) == n_s, "the probe missed rows of a match-ratio-1 join")
     del vid, hit
+
+    # row 3s, the served probe: both key columns padded to their buckets
+    # (`pad_table`) and the padding masked to KEY_SENTINEL, as the executor
+    # masks it. Those rows form the sentinel partition, after the last of the
+    # P partitions, and the kernel's whole grid answers them.
+    pad_r, pad_s = bucket_rows(n_r) - n_r, bucket_rows(n_s) - n_s
+    kr_pad, ks_pad = (torch.cat([k, torch.full((pad,), hj.KEY_SENTINEL, dtype=k.dtype,
+                                               device=dev)])
+                      for k, pad in ((R["k"], pad_r), (S["k"], pad_s)))
+    check(hj.choose_partition_bits(kr_pad.shape[0], cap) == p_bits,
+          "the served build side takes another partition count than J2's")
+    served_args = ()
+    for k in (kr_pad, ks_pad):
+        perm, off, sz = prim.plan_partition_permutation(hj._digits(k, p_bits, True), P + 1)
+        served_args += (k[perm], off[:P].contiguous(), sz[:P].contiguous())
+    served_args += (cap,)
+    outside = ks_pad.shape[0] - int(served_args[4][-1] + served_args[5][-1])
+    check(outside == pad_s, f"{outside} probe rows after the last partition, not the {pad_s} "
+                            f"padded ones")
+    vid, hit = kprobe.hash_probe(*served_args)
+    check(int(hit.sum()) == n_s, "the served probe missed rows of a match-ratio-1 join")
+    # bytes as row 3's, with the padded rows' vid and hit written but no key
+    # of theirs read
+    served_bytes = 4 * n_s + (4 + 1) * (n_s + pad_s) + 4 * live_build + 4 * 4 * P
+    log(f"hash_probe, served: {n_s + pad_s} probe rows, {pad_s} after the last of {P} "
+        f"partitions, against {n_r + pad_r} build rows; bytes={served_bytes}")
+    record("hash_probe", [vid, hit], list(ref.hash_probe(*served_args)),
+           lambda: kprobe.hash_probe(*served_args), lambda: ref.hash_probe(*served_args), None,
+           served_bytes, live_build + n_s, plain_reps=3,
+           shape=f"3s: {n_s + pad_s} probe rows, {pad_s} after the last of {P} partitions, "
+                 f"against {n_r + pad_r} build rows")
+    del vid, hit, served_args, kr_pad, ks_pad, perm, off, sz
 
     # the group-join's probe_agg on its padded layout: group key k, s1 from
     # the probe side, r1 from the build side (as phj_groupjoin lays them out)

@@ -33,6 +33,19 @@
 // The next partition's offsets and sizes are loaded before the current one
 // is probed.
 //
+// Who answers the rows in no partition. The rows after the last partition's
+// end are the sentinel partition's: the plans send every KEY_SENTINEL key
+// there, and a served query's padding puts millions of them on the probe
+// side (7.1M of 67.1M lineitem rows at SF10). They miss whatever their key,
+// so every thread of the grid writes its share of them, one row at a time,
+// before its block walks the partitions: on an H100 about 0.015 ms of the
+// kernel's 0.47 there, where it took 12.6 ms while the last partition's
+// warp answered them. (Runs of four rows in 16-byte stores spilled three
+// registers and were no faster.) The few rows before partition 0 or
+// between two partitions, which planned partitions never leave, are
+// answered by the group of the partition before them (partition 0's for
+// the first) as it streams its own.
+//
 // What held it back (H100 80GB HBM3, 700 W; PERF.md): walking the
 // partitions. With no table at all, the same loads and stores take 0.34 of
 // the kernel's 0.43 ms at J2; more rows in flight (in registers or staged by
@@ -58,10 +71,21 @@ __device__ __forceinline__ unsigned slot_hash(int key, int bits) {
   return (static_cast<unsigned>(key) * 0x9E3779B1u) >> (32 - bits);
 }
 
+// partition p's probe rows [start, end), clamped to [0, n_probe]
+struct Rows {
+  long long start, end;
+};
+
+__device__ __forceinline__ Rows probe_rows(long long p, const int* __restrict__ off_s,
+                                           const int* __restrict__ sz_s, long long n_probe) {
+  const long long start = min(max(static_cast<long long>(off_s[p]), 0LL), n_probe);
+  return {start, min(start + max(sz_s[p], 0), n_probe)};
+}
+
 // the rows one partition's group answers: [lo, hi), of which [start,
 // probe_hi) are the partition's probe rows and the rest lie in no partition
-// (partition 0 answers the rows before its first, every partition those up
-// to the next one's first, the last those up to n_probe)
+// (partition 0 answers the rows before its first, every partition but the
+// last those up to the next one's first; the grid those after the last's)
 struct Part {
   int build_off, build_rows;
   long long lo, start, probe_hi, hi;
@@ -75,12 +99,13 @@ __device__ __forceinline__ Part load_part(long long p, const int* __restrict__ o
   Part q;
   q.build_off = off_r[p];
   q.build_rows = max(0, min(sz_r[p], cap));
-  q.start = min(max(static_cast<long long>(off_s[p]), 0LL), n_probe);
-  q.probe_hi = min(q.start + max(sz_s[p], 0), n_probe);
-  const long long next =
-      p + 1 < num_parts ? min(static_cast<long long>(off_s[p + 1]), n_probe) : n_probe;
+  const Rows rows = probe_rows(p, off_s, sz_s, n_probe);
+  q.start = rows.start;
+  q.probe_hi = rows.end;
   q.lo = p == 0 ? 0 : q.start;
-  q.hi = max(next, q.probe_hi);
+  q.hi = p + 1 < num_parts
+             ? max(min(static_cast<long long>(off_s[p + 1]), n_probe), q.probe_hi)
+             : q.probe_hi;
   return q;
 }
 
@@ -104,6 +129,14 @@ __global__ void __launch_bounds__(THREADS) hash_probe_kernel(
   const int g = threadIdx.x / GROUP, r = threadIdx.x % GROUP;
   unsigned long long* table = table_mem + (static_cast<long long>(g) << table_bits);
   const long long stride = static_cast<long long>(gridDim.x) * GROUPS;
+  // the rows after the last partition's end miss: every thread of the
+  // grid writes its share before any group walks a partition
+  const long long tail = probe_rows(num_parts - 1, off_s, sz_s, n_probe).end;
+  for (long long j = tail + static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+       j < n_probe; j += static_cast<long long>(gridDim.x) * THREADS) {
+    vid[j] = -1;
+    hit[j] = 0;
+  }
   long long p = static_cast<long long>(blockIdx.x) * GROUPS + g;
   if (p >= num_parts) return;  // the whole group leaves: no sync is left waiting
   Part cur = load_part(p, off_r, sz_r, off_s, sz_s, num_parts, n_probe, cap);

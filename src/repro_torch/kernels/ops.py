@@ -18,6 +18,7 @@ import os
 
 import torch
 
+from ..obs import trace as _trace
 from . import gather as _gather
 from . import histogram as _histogram
 from . import merge_join as _merge_join
@@ -166,6 +167,11 @@ def hash_probe(build_keys_part: torch.Tensor, off_r: torch.Tensor, sz_r: torch.T
     directly; 'torch': its plain version (`ref.hash_probe`)."""
     impl = resolve_impl(impl, probe_keys_part)
     args = (build_keys_part, off_r, sz_r, probe_keys_part, probe_off, probe_sz, build_block)
+    if _trace.on():
+        # the rows after the last partition's end, which the kernel's whole
+        # grid answers: a 0-d tensor, read after the span closes
+        n = probe_keys_part.shape[0]
+        _trace.annotate(rows_outside=n - (probe_off[-1] + probe_sz[-1]).clamp(0, n))
     with kernel_call("hash_probe"):
         if impl == "torch":
             return ref.hash_probe(*args)

@@ -31,8 +31,9 @@ measured-vs-attributed comparison.
 The span recorder (`span`, `begin`/`end`, `recorded`) times the program's
 own phases where they run, on whatever path runs them: the query server's
 phases of each request and each plan node's call in `executor.execute`,
-untraced runs included. It is on only while a torch profiler runs or
-inside `recording()`; off, a span costs one flag check.
+untraced runs included; `annotate` adds what code below a span saw to it
+(the probe's rows in no partition). It is on only while a torch profiler
+runs or inside `recording()`; off, a span costs one flag check.
 """
 from __future__ import annotations
 
@@ -326,6 +327,17 @@ def end(rec: SpanRecord | None, **attrs) -> None:
     """Closes a span `begin` opened; nothing for None or a closed span."""
     if rec is not None and rec.t1_ns is None:
         rec._close(attrs)
+
+
+def annotate(**attrs) -> None:
+    """Sets `attrs` on the innermost open context-manager span (a value
+    may be a 0-d tensor, read late as a node's `rows_out` is); nothing when
+    the recorder is off or no such span is open."""
+    if not (_forced or _profiler_enabled()):
+        return
+    rec = _CURRENT.get()
+    if rec is not None:
+        rec.attrs.update(attrs)
 
 
 def node_span(node):

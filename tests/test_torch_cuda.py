@@ -193,6 +193,61 @@ def test_probe_kernel_wide_partitions(dev):
         assert torch.equal(vid, pv) and torch.equal(hit, ph)
 
 
+# Layouts whose rows after the last partition's end, which the kernel's
+# whole grid answers, far outnumber any partition's rows.
+PROBE_TAILS = ["served", "all_empty", "unaligned"]
+
+
+def _probe_tail(case):
+    """(kr, off_r, sz_r, ks, off_s, sz_s) int32. 'served': a served probe in
+    miniature, 2^12 partitions and 2^20 rows of which 11% lie after the last
+    partition, as the padding's KEY_SENTINEL keys do; 'all_empty': every
+    partition empty, so every row lies after the last one's end;
+    'unaligned': a tail whose start and length are not multiples of 16 (nor
+    of 4). Outside the served case the tail's keys are build keys, which
+    miss all the same: those rows lie in no partition."""
+    rng = np.random.default_rng(PROBE_TAILS.index(case))
+    P = 1 << 12 if case == "served" else 256
+    n, tail = {"served": (1 << 20, (1 << 20) * 11 // 100), "all_empty": (300_001, 300_001),
+               "unaligned": (16 * 4000 + 22, 16 * 3000 + 9)}[case]
+    sz_r = rng.integers(0, 80, P).astype(np.int32)
+    keys = rng.permutation(1 << 21)[:int(sz_r.sum())].astype(np.int32)
+    off_r = np.concatenate([[0], np.cumsum(sz_r)[:-1]]).astype(np.int32)
+    sz_s = rng.multinomial(n - tail, np.full(P, 1 / P)).astype(np.int32)
+    off_s = np.concatenate([[0], np.cumsum(sz_s)[:-1]]).astype(np.int32)
+    ks = []
+    for p in range(P):
+        probe = rng.integers(_MISS, 2 * _MISS, sz_s[p]).astype(np.int32)
+        if sz_r[p]:
+            match = rng.random(sz_s[p]) < 0.7
+            probe[match] = rng.choice(keys[off_r[p]:off_r[p] + sz_r[p]], int(match.sum()))
+        ks.append(probe)
+    ks.append(np.full(tail, -1, np.int32) if case == "served" else rng.choice(keys, tail))
+    return keys, off_r, sz_r, np.concatenate(ks), off_s, sz_s
+
+
+@pytest.mark.parametrize("cap", [256, 2048])
+@pytest.mark.parametrize("case", PROBE_TAILS)
+def test_probe_kernel_rows_after_the_last_partition_equal_plain(dev, case, cap):
+    """The rows after the last partition's end, far more than any partition
+    holds, on the warp tables (256) and the block's (2048): the kernel
+    equals its plain version exactly, with one launch a call, and every one
+    of those rows misses."""
+    args = [_on(dev, a) for a in _probe_tail(case)]
+    off_s, sz_s, n = args[4], args[5], args[3].shape[0]
+    end = int(off_s[-1] + sz_s[-1])
+    assert n - end > 100 * int(sz_s.max())
+    if case == "unaligned":
+        assert end % 4 and (n - end) % 4 and n % 4
+    before = ops.launch_counts()["hash_probe"]
+    vid, hit = ops.hash_probe(*args, cap, "cuda")
+    assert ops.launch_counts()["hash_probe"] == before + 1
+    pv, ph = ref.hash_probe(*args, cap)
+    assert torch.equal(vid, pv) and torch.equal(hit, ph)
+    assert bool((vid[end:] == -1).all()) and not bool(hit[end:].any())
+    assert bool(hit[:end].any()) == (end > 0)
+
+
 def test_probe_wrapper_rejects_what_the_kernel_does_not_take(dev):
     args = [_on(dev, a) for a in _probe_edge("plain", 256)]
     with pytest.raises(ValueError):

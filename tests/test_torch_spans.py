@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import table_from_numpy
+from repro_torch.core import KEY_SENTINEL, table_from_numpy
 from repro_torch.engine import Catalog, executor, optimize, scan
 from repro_torch.obs import metrics, trace
 from repro_torch.resilience import faults
@@ -20,14 +20,19 @@ from repro_torch.serve import query as Q
 PLAN = (scan("S").join(scan("R"), key="k").group_by("k", sv="sum")
         .order_by("sv_sum", limit=5, descending=True))
 GROUPS = scan("S").join(scan("R"), key="k").group_by("g", sv="sum")
+JOIN = scan("S").join(scan("R"), key="k")
 CROSSING = {"qserve.request", "qserve.queued"}  # begin/end spans: no twin
 
 
-def _tables(n_r=300, n_s=1200, seed=0):
+def _tables(n_r=300, n_s=1200, seed=0, tail=0):
+    """R (keys a permutation) and S (foreign keys); the last `tail` of S's
+    keys are KEY_SENTINEL."""
     rng = np.random.default_rng(seed)
+    sk = rng.integers(0, n_r, n_s).astype(np.int32)
+    sk[n_s - tail:] = KEY_SENTINEL
     cols = {"R": {"k": rng.permutation(n_r).astype(np.int32),
                   "rv": rng.integers(0, 50, n_r).astype(np.int64)},
-            "S": {"k": rng.integers(0, n_r, n_s).astype(np.int32),
+            "S": {"k": sk,
                   "g": rng.integers(0, 8, n_s).astype(np.int32),
                   "sv": rng.integers(0, 50, n_s).astype(np.int64)}}
     return {n: table_from_numpy(t, "cpu") for n, t in cols.items()}
@@ -260,6 +265,55 @@ def test_every_span_has_a_profiler_twin_at_the_same_moment():
         assert starts, s.name
         assert min(abs(t - (s.t0_ns + offset)) for t in starts) < 1_000_000, s.name
     assert len(events["exec.run"]) == 2
+
+
+@pytest.mark.parametrize("tail", [0, 37])
+@pytest.mark.parametrize("query,node", [(JOIN, "exec.join"), (PLAN, "exec.groupjoin")])
+def test_probe_rows_outside_every_partition_are_on_the_node_span(query, node, tail):
+    """A PHJ join and a group-join on the plain arm leave on their node's
+    span `rows_outside`, the probe rows past the last partition's end (the
+    sentinel partition's, which the probe kernel's whole grid answers): the
+    probe side's KEY_SENTINEL keys, 0 where it has none."""
+    plan = optimize(query, Catalog(_tables(tail=tail)), measure_profile=False)
+    with trace.recording():
+        executor.run(plan)
+    (rec,) = [s for s in trace.recorded() if s.name == node]
+    assert rec.attrs["strategy"].startswith("phj")
+    assert int(rec.attrs["rows_outside"]) == tail
+
+
+def test_served_padding_is_the_probe_rows_outside():
+    """A served query's probe side is padded to its bucket, and the
+    executor masks the padding to KEY_SENTINEL: each run's group-join span
+    counts those rows outside every partition. The first request's plan
+    sizing runs the padded tables unmasked, their continuation keys live."""
+    with trace.recording():
+        _serve(n=2)
+    gj = {}
+    for s in trace.recorded():
+        if s.name == "exec.groupjoin":
+            where = "qserve.run" if "qserve.run" in _chain(s) else "qserve.plan"
+            gj.setdefault(where, []).append(int(s.attrs["rows_outside"]))
+    assert gj == {"qserve.plan": [0], "qserve.run": [Q.bucket_rows(1200) - 1200] * 2}
+
+
+def test_annotate_sets_the_innermost_span_and_off_makes_nothing():
+    before = trace.SpanRecord.allocated
+    assert not trace.on()
+    trace.annotate(rows_outside=5)
+    with trace.span("outer") as rec:
+        assert rec is None
+        trace.annotate(rows_outside=5)
+    assert trace.SpanRecord.allocated == before and trace.recorded() == []
+    with trace.recording():
+        trace.annotate(a=1)  # no span open: nothing to set
+        with trace.span("outer", a=1):
+            with trace.span("inner"):
+                trace.annotate(a=2, b=3)
+            trace.annotate(a=4)
+    inner, outer = trace.recorded()
+    assert inner.attrs == {"a": 2, "b": 3} and outer.attrs == {"a": 4}
+    assert trace.SpanRecord.allocated == before + 2
 
 
 def test_ring_is_bounded_and_counts_what_it_drops():
