@@ -1,6 +1,8 @@
 """The check's control: the plain reference put in the program's place and
 accumulated one precision below what the configuration states (int32 sums
-for its int64 ones). The check has to find its answers wrong.
+for its int64 ones; a query whose configuration states another precision
+names the one below it as its `NARROW`, bfloat16 for float32). The check
+has to find its answers wrong.
 
     python3 bench/control.py --workload <cell> --seconds <s> --seeds <n> [<n> ...]
 
@@ -50,9 +52,14 @@ class ControlEntry:
         return {c: v.cpu().numpy() for c, v in ref.items()}
 
 
-def control_entry(acc: torch.dtype = torch.int32):
+def narrow(query) -> torch.dtype:
+    """The control's accumulator for `query`: its `NARROW`, else int32."""
+    return getattr(query, "NARROW", torch.int32)
+
+
+def control_entry():
     def make(parts, tables, device):
-        return ControlEntry(parts["query"], tables, acc)
+        return ControlEntry(parts["query"], tables, narrow(parts["query"]))
     return make
 
 

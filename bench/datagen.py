@@ -4,13 +4,16 @@ A rewrite of the recipe of the port's relational generator, so that the
 program under test never makes its own inputs: keys are a permutation of
 [0, rows), foreign keys are uniform over the rows of the table they point
 into, and payloads are derived from a key by the same formula, so a check
-can recompute them. A configuration lists its tables and, per column, a
-recipe:
+can recompute them. Skewed keys and values independent of the key are
+drawn by their own recipes. A configuration lists its tables and, per
+column, a recipe:
 
   {"kind": "permutation"}                       a permutation of [0, rows)
   {"kind": "uniform", "domain": "<table>"}      uniform in [0, rows of <table>)
   {"kind": "payload", "of": "<column>", "j": j} payload j of that column
   {"kind": "row_number"}                        0, 1, ..., rows - 1
+  {"kind": "zipf", "s": s, "fold": f}           (X - 1) mod f, X ~ Zipf(s) on 1, 2, ...
+  {"kind": "real", "low": a, "high": b}         uniform in [a, b)
 
 each with its "dtype". Tables are drawn in the order the configuration
 lists them, columns in their order, all from one generator on the device
@@ -32,6 +35,35 @@ def payload(keys: torch.Tensor, j: int, dtype: torch.dtype) -> torch.Tensor:
     if keys.numel() and int(keys.max()) * mult >= 1 << 63:
         raise ValueError(f"payload {j}: keys up to {int(keys.max())} overflow int64")
     return ((keys.to(torch.int64) * mult) % PAYLOAD_MOD).to(dtype)
+
+
+def zipf_pmf(s: float, fold: int, device="cpu") -> torch.Tensor:
+    """P(k), k in [0, fold), of (X - 1) mod fold with X ~ Zipf(s) on
+    {1, 2, ...} (the law of numpy's `Generator.zipf`), in float64:
+    fold^-s * zeta(s, (k + 1) / fold) / zeta(s), with the Hurwitz zeta."""
+    s64 = torch.tensor(float(s), dtype=torch.float64, device=device)
+    q = torch.arange(1, fold + 1, dtype=torch.float64, device=device) / fold
+    return fold ** -float(s) * torch.special.zeta(s64, q) / torch.special.zeta(s64, 1.0)
+
+
+def zipf_keys(n: int, s: float, fold: int, g: torch.Generator, device) -> torch.Tensor:
+    """n int64 draws of `zipf_pmf(s, fold)`, by inverse CDF: float64
+    uniforms from `g` searched in the cumulative pmf, its last entry 1."""
+    cdf = torch.cumsum(zipf_pmf(s, fold, device), 0)
+    cdf[-1] = 1.0
+    u = torch.rand(n, generator=g, device=device, dtype=torch.float64)
+    return torch.searchsorted(cdf, u, right=True)
+
+
+def real_values(n: int, low: float, high: float, dtype: torch.dtype, g: torch.Generator,
+                device) -> torch.Tensor:
+    """n uniforms in [low, high) in `dtype`; a value that rounds up to
+    `high` is taken as the largest below it."""
+    u = torch.rand(n, generator=g, device=device, dtype=dtype)
+    v = low + (high - low) * u
+    top = torch.nextafter(torch.tensor(high, dtype=dtype, device=device),
+                          torch.tensor(low, dtype=dtype, device=device))
+    return torch.where(v < high, v, top)
 
 
 def make_tables(config: dict, seed: int, device) -> dict[str, dict[str, torch.Tensor]]:
@@ -56,6 +88,10 @@ def make_tables(config: dict, seed: int, device) -> dict[str, dict[str, torch.Te
                 v = payload(cols[col["of"]], int(col["j"]), dtype)
             elif kind == "row_number":
                 v = torch.arange(n, device=device, dtype=dtype)
+            elif kind == "zipf":
+                v = zipf_keys(n, float(col["s"]), int(col["fold"]), g, device).to(dtype)
+            elif kind == "real":
+                v = real_values(n, float(col["low"]), float(col["high"]), dtype, g, device)
             else:
                 raise ValueError(f"{tname}.{cname}: unknown column kind {kind!r}")
             cols[cname] = v

@@ -1,15 +1,17 @@
 """The generator's determinism and recipe, the byte formulas, and the plain
 references against the port's plain arms (its kernels' plain versions run
 for CPU tensors) at a tiny size."""
+import hashlib
+
 import numpy as np
 import pytest
 import torch
 
-from bench import check, datagen, loop, refops, roofline
+from bench import check, control, datagen, loop, refops, roofline
 
-from .conftest import tiny_parts
+from .conftest import HELD, tiny_parts
 
-CONFIG_CELLS = ["q18-sf10.embedded", "star4-sf10.served4"]
+CONFIG_CELLS = ["q18-sf10.embedded", "star4-sf10.served4", *HELD]
 
 
 def digest(tables):
@@ -44,6 +46,83 @@ def test_generator_recipe():
                           _payload(li.numpy(), 100, np.int64))
 
 
+# sha256 of the tables of the configurations that predate the zipf and real
+# recipes, at the tests' size from seed 2^31 + 3, as the generator drew them
+# before those recipes were added
+PINNED = {
+    "q18-sf10.embedded": "7947884c58abfa49961e63adae9603447ec427fdcac0dc650042cb4b0f53a37e",
+    "star4-sf10.served4": "00afcad10ac72cee7207e904ad10143a57ce29b53dc1871514ffa6c44f52c19e",
+}
+
+
+@pytest.mark.parametrize("cell", sorted(PINNED))
+def test_older_configurations_draw_the_same_tables(cell):
+    h = hashlib.sha256()
+    for tname, cols in datagen.make_tables(tiny_parts(cell)["config"], 2**31 + 3, "cpu").items():
+        for cname, v in cols.items():
+            h.update(f"{tname}.{cname}:{v.dtype}:{v.numel()};".encode())
+            h.update(v.numpy().tobytes())
+    assert h.hexdigest() == PINNED[cell]
+
+
+def test_zipf_pmf_is_the_folded_zipf_law():
+    p = datagen.zipf_pmf(1.5, 4096)
+    assert p.dtype == torch.float64 and abs(float(p.sum()) - 1) < 1e-12
+    assert float(p[0]) == pytest.approx(0.3828, abs=5e-5)
+    assert float(p[-1]) == pytest.approx(4096 ** -1.5, rel=1e-12)
+    assert float(p[:100].sum()) == pytest.approx(0.924, abs=5e-4)
+    # brute force at fold 8: the sum of x^-s over x = k + 1 + 8j, j < J,
+    # and the tail past J by the midpoint rule, over zeta(1.5)
+    s, fold, j = 1.5, 8, 10**6
+    x = np.arange(1, fold * j + 1, dtype=np.float64).reshape(j, fold)
+    head = (x ** -s).sum(axis=0)
+    tail = (np.arange(1, fold + 1) + fold * (j - 0.5)) ** (1 - s) / (fold * (s - 1))
+    folded = head + tail
+    assert np.allclose(datagen.zipf_pmf(s, fold).numpy(), folded / folded.sum(),
+                       rtol=1e-9, atol=0)
+
+
+def tv(a: torch.Tensor, b: torch.Tensor) -> float:
+    return 0.5 * float((a - b).abs().sum())
+
+
+def test_zipf_draws_follow_the_pmf_and_numpy():
+    n, fold = 10**6, 4096
+    g = torch.Generator().manual_seed(2**31 + 5)
+    keys = datagen.zipf_keys(n, 1.5, fold, g, "cpu")
+    assert int(keys.min()) >= 0 and int(keys.max()) < fold
+    mine = torch.bincount(keys, minlength=fold).double() / n
+    numpy_keys = (np.random.default_rng(7).zipf(1.5, n) - 1) % fold
+    theirs = torch.from_numpy(np.bincount(numpy_keys, minlength=fold)).double() / n
+    # numpy's own draws read 0.0082 from the exact pmf
+    assert tv(mine, datagen.zipf_pmf(1.5, fold)) < 0.015
+    assert tv(mine, theirs) < 0.02
+
+
+@pytest.mark.parametrize("low,high,dtype", [(0.0, 1.0, torch.float32),
+                                            (-2.5, 3.0, torch.float32),
+                                            (1.0, 1.0 + 2**-20, torch.float32),
+                                            (0.0, 1.0, torch.float64)])
+def test_real_values_stay_in_range(low, high, dtype):
+    g = torch.Generator().manual_seed(11)
+    v = datagen.real_values(10**5, low, high, dtype, g, "cpu")
+    assert v.dtype == dtype and float(v.min()) >= low and float(v.max()) < high
+    assert float(v.std()) > 0.2 * (high - low)
+
+
+def test_skew_recipe():
+    cfg = tiny_parts("skew-groupby.embedded")["config"]
+    t = datagen.make_tables(cfg, 2**31 + 9, "cpu")["facts"]
+    n = cfg["tables"]["facts"]["rows"]
+    assert t["k"].dtype == torch.int32 and t["v"].dtype == torch.float32
+    assert t["k"].numel() == t["v"].numel() == n
+    assert int(t["k"].min()) == 0 and int(t["k"].max()) < 4096
+    assert float(t["v"].min()) >= 0 and float(t["v"].max()) < 1
+    # the values are drawn apart from the keys: key 0's rows have the mean
+    # of all rows
+    assert float(t["v"][t["k"] == 0].mean()) == pytest.approx(0.5, abs=0.02)
+
+
 def test_payload_refuses_a_wrapping_product():
     with pytest.raises(ValueError):
         datagen.payload(torch.tensor([2**40]), 0, torch.int64)
@@ -61,13 +140,20 @@ def test_byte_bounds_match_the_kernel_table():
 
 
 def program_answer(parts, tables):
+    """The program's answer and group output; a served cell's tables are
+    padded to their buckets and counted as the server pads and counts them."""
     from repro_torch.core.table import Table
     from repro_torch.engine import Catalog, executor, optimize, scan
+    from repro_torch.serve.query import bucket_rows, pad_table
 
     prog = {n: Table(dict(c)) for n, c in tables.items()}
+    counts = None
+    if parts["traffic"]["entry"] == "server":
+        counts = {n: t.num_rows for n, t in prog.items()}
+        prog = {n: pad_table(t, bucket_rows(t.num_rows)) for n, t in prog.items()}
     plan = optimize(parts["query"].plan(scan), Catalog(prog), measure_profile=False)
     with loop.keep_output(loop.group_node(plan.root)) as kept:
-        answer = loop.fetch(executor.run(plan, prog))
+        answer = loop.fetch(executor.run(plan, prog, counts=counts))
     return answer, kept[-1]
 
 
@@ -89,11 +175,12 @@ def test_a_narrower_sum_is_a_wrong_answer(cell):
     q = parts["query"]
     tables = datagen.make_tables(parts["config"], 9, "cpu")
     ref = q.reference(tables)
-    narrow_ref = q.reference(tables, torch.int32)
+    narrow_ref = q.reference(tables, control.narrow(q))
     narrow = refops.top_rows(narrow_ref, q.ORDER, q.LIMIT)
     narrow = {c: v.numpy() for c, v in narrow.items()}
-    assert check.rows_wrong(narrow, ref, q.KEY, q.ORDER, q.LIMIT) > 0
-    assert check.groups_wrong({c: v.numpy() for c, v in narrow_ref.items()}, ref, q.KEY) > 0
+    numbers, right = q.judge([narrow], {c: v.numpy() for c, v in narrow_ref.items()}, ref)
+    assert right == [False] and numbers["rows_wrong_max"] > 0 and numbers["groups_wrong"] > 0
+    assert not check.within_limits(numbers, q.LIMITS)
 
 
 def test_rows_wrong_counts_each_fault():
@@ -131,6 +218,40 @@ def test_groups_wrong_counts_each_fault():
     assert check.groups_wrong(g([1, 2, 3, 4, 4], [10, 40, 30, 40, 40]), ref, "k") == 1
     assert check.groups_wrong(None, ref, "k") == 4
     assert check.groups_wrong({"k": np.array([1, 2])}, ref, "k") == 6
+
+
+def test_close_judge_counts_each_fault():
+    ref = {"k": torch.tensor([1, 2, 3, 4], dtype=torch.int32),
+           "s": torch.tensor([10.0, 40.0, 30.0, 40.0], dtype=torch.float64),
+           "c": torch.tensor([1, 5, 3, 2])}
+    rel = {"s": 1e-5}
+
+    def rows(k, s, c):
+        return {"k": np.array(k, dtype=np.int32), "s": np.array(s, dtype=np.float32),
+                "c": np.array(c, dtype=np.int32)}
+
+    def wrong(ans):
+        return check.rows_wrong_close(ans, ref, "k", "s", 3, rel)
+
+    good = rows([4, 2, 3], [40.0002, 40, 30], [2, 5, 3])
+    assert wrong(good) == 0
+    assert wrong(rows([2, 4, 3], [40.0002, 40, 30], [5, 2, 3])) == 0  # a near tie
+    assert wrong(rows([4, 2, 3], [40.01, 40, 30], [2, 5, 3])) == 1  # a sum off
+    assert wrong(rows([4, 2, 3], [40, 40, 30], [2, 4, 3])) == 1  # a count off
+    assert wrong(rows([4, 2], [40, 40], [2, 5])) == 1  # a row missing
+    assert wrong(rows([4, 4, 3], [40, 40, 30], [2, 2, 3])) == 1  # a key repeated
+    assert wrong(rows([4, 2, 1], [40, 40, 10], [2, 5, 1])) == 1  # not the top 3
+    assert wrong({"k": np.array([4, 2, 3])}) == 3
+    full = rows([1, 2, 3, 4], [10, 40, 30.0003, 40], [1, 5, 3, 2])
+    assert check.groups_close(full, ref, "k", rel) == (0, pytest.approx(1e-5, rel=0.02))
+    off = rows([1, 2, 3, 4], [10, 40, 30.003, 40], [1, 5, 3, 2])
+    assert check.groups_close(off, ref, "k", rel) == (2, pytest.approx(1e-4, rel=0.02))
+    assert check.groups_close(rows([1, 2, 3], [10, 40, 30], [1, 5, 3]), ref, "k", rel) == (1, 1.0)
+    assert check.groups_close(None, ref, "k", rel) == (4, 1.0)
+    numbers, right = check.judge_close([good, None, good], full, ref, "k", "s", 3, rel)
+    assert right == [True, False, True]
+    assert numbers == {"answers_missing": 1, "answers_wrong": 0, "rows_wrong_max": 0,
+                       "groups_wrong": 0, "rel_err_max": pytest.approx(1e-5, rel=0.02)}
 
 
 def test_launch_bytes_are_captured_as_a_metric_file_declares(monkeypatch):

@@ -11,24 +11,28 @@ import pytest
 from bench import control, harness, registry
 from bench.loop import Query
 
-from .conftest import ROOT, run_tiny, tiny_parts
+from .conftest import HELD, ROOT, run_tiny, tiny_parts
 
 SPEC = registry.load_spec()
-CELLS = [w["name"] for w in SPEC["workloads"]]
-SERVED = [w["name"] for w in SPEC["workloads"] if w["traffic"].startswith("served")]
+CELLS = [w["name"] for w in SPEC["workloads"]] + list(HELD)
+SERVED = ([w["name"] for w in SPEC["workloads"] if w["traffic"].startswith("served")]
+          + [c for c, t in HELD.items() if t.startswith("served")])
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_result_line(cell):
-    res = run_tiny(tiny_parts(cell))["result"]
+    parts = tiny_parts(cell)
+    res = run_tiny(parts)["result"]
     assert list(res) == ["correct", "attempted", "failed", "metrics", "device", "checks"]
     assert res["correct"] and res["failed"] == 0 and res["attempted"] > 0
     assert set(res["metrics"]) == {m["name"] for m in SPEC["end_to_end"]}
     for m in res["metrics"].values():
         assert set(m) == {"value", "unit"} and m["value"] > 0 or m["unit"] == "GiB"
-    assert set(res["checks"]) == {"answers_missing", "answers_wrong", "rows_wrong_max",
-                                  "groups_wrong"}
-    assert all(c == {"value": 0, "limit": 0} for c in res["checks"].values())
+    limits = parts["query"].LIMITS
+    assert {"answers_missing", "answers_wrong", "rows_wrong_max",
+            "groups_wrong"} <= set(res["checks"]) == set(limits)
+    assert all(c["limit"] == limits[k] and 0 <= c["value"] <= c["limit"]
+               for k, c in res["checks"].items())
 
 
 def test_traced_result_line():
@@ -118,8 +122,9 @@ def test_control_is_not_correct(cell):
 
 
 @pytest.mark.cuda
-def test_control_is_not_correct_on_the_card(card):
-    parts = tiny_parts("q18-sf10.served4", shrink=64)
+@pytest.mark.parametrize("cell", ["q18-sf10.served4", "skew-groupby.served4"])
+def test_control_is_not_correct_on_the_card(card, cell):
+    parts = tiny_parts(cell, shrink=64)
     good = run_tiny(parts, device=card, seconds=2.0)["result"]
     bad = run_tiny(parts, device=card, seconds=2.0, make_entry=control.control_entry())
     assert good["correct"] and not bad["result"]["correct"]

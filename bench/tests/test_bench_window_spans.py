@@ -9,7 +9,8 @@ import pytest
 from bench import harness, registry
 from bench.loop import Query
 
-METRICS = ("serve.pad_ms", "op.groupjoin_window_ms", "op.join_window_ms")
+METRICS = ("serve.pad_ms", "op.groupjoin_window_ms", "op.join_window_ms",
+           "op.groupby_window_ms")
 
 
 @dataclasses.dataclass
@@ -40,6 +41,8 @@ def spans(device=True):
         FakeSpan("exec.groupjoin", 13 * s, d(60.0), 44.0),
         FakeSpan("exec.join", 14 * s, d(30.0), 30.0),
         FakeSpan("exec.join", 21 * s, d(30.0), 30.0),
+        FakeSpan("exec.groupby", 16 * s, d(52.0), 48.0),
+        FakeSpan("exec.groupby", 8 * s, d(52.0), 48.0),  # before the window: out
     ]
 
 
@@ -63,6 +66,7 @@ def test_window_filter_and_per_query_division(recorded):
     # self time, not the interval: the inputs' spans are taken out
     assert read("op.groupjoin_window_ms", ctx) == pytest.approx((40.0 + 44.0) / 4)
     assert read("op.join_window_ms", ctx) == pytest.approx(30.0 / 4)
+    assert read("op.groupby_window_ms", ctx) == pytest.approx(48.0 / 4)
 
 
 def test_nothing_read_without_device_intervals(recorded):
