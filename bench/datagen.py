@@ -5,8 +5,9 @@ program under test never makes its own inputs: keys are a permutation of
 [0, rows), foreign keys are uniform over the rows of the table they point
 into, and payloads are derived from a key by the same formula, so a check
 can recompute them. Skewed keys and values independent of the key are
-drawn by their own recipes. A configuration lists its tables and, per
-column, a recipe:
+drawn by their own recipes, and so are the columns of TPC-H's lineitem
+by dbgen's rules (TPC-H v3, clause 4.2.3). A configuration lists its
+tables and, per column, a recipe:
 
   {"kind": "permutation"}                       a permutation of [0, rows)
   {"kind": "uniform", "domain": "<table>"}      uniform in [0, rows of <table>)
@@ -14,10 +15,25 @@ column, a recipe:
   {"kind": "row_number"}                        0, 1, ..., rows - 1
   {"kind": "zipf", "s": s, "fold": f}           (X - 1) mod f, X ~ Zipf(s) on 1, 2, ...
   {"kind": "real", "low": a, "high": b}         uniform in [a, b)
+  {"kind": "randint", "low": a, "high": b}      uniform integers in [a, b], both ends
+                                                included: dbgen's RANDOM(a, b)
+  {"kind": "shift", "of": "<column>", "low": a, "high": b}
+                                                that column plus its own randint [a, b]
+  {"kind": "tpch_extendedprice", "quantity": "<column>", "partkey": "<column>"}
+                                                quantity x P_RETAILPRICE(partkey) in cents
+  {"kind": "tpch_returnflag", "receiptdate": "<column>", "currentdate": d}
+                                                ord('N') where the date is past d, else
+                                                ord('R') or ord('A') by a fair draw a row
+  {"kind": "tpch_linestatus", "shipdate": "<column>", "currentdate": d}
+                                                ord('O') where the date is past d, else
+                                                ord('F'); draws nothing
 
-each with its "dtype". Tables are drawn in the order the configuration
-lists them, columns in their order, all from one generator on the device
-seeded with the run's seed: the same seed gives the same tables.
+each with its "dtype". Dates are days since 1992-01-01, dbgen's
+STARTDATE; decimals are integers in hundredths; flags are ASCII codes, so
+that the codes sort as the letters do. Tables are drawn in the order the
+configuration lists them, columns in their order, all from one generator
+on the device seeded with the run's seed: the same seed gives the same
+tables.
 """
 from __future__ import annotations
 
@@ -66,6 +82,20 @@ def real_values(n: int, low: float, high: float, dtype: torch.dtype, g: torch.Ge
     return torch.where(v < high, v, top)
 
 
+def retail_price_cents(partkey: torch.Tensor) -> torch.Tensor:
+    """dbgen's P_RETAILPRICE of these part keys, in cents, as int64:
+    90000 + ((p / 10) mod 20001) + 100 * (p mod 1000)."""
+    p = partkey.to(torch.int64)
+    return 90000 + torch.remainder(torch.div(p, 10, rounding_mode="floor"), 20001) \
+        + 100 * torch.remainder(p, 1000)
+
+
+def randint(n: int, low: int, high: int, g: torch.Generator, device) -> torch.Tensor:
+    """n int64 draws uniform in [low, high], both ends included."""
+    return torch.randint(int(low), int(high) + 1, (n,), generator=g, device=device,
+                         dtype=torch.int64)
+
+
 def make_tables(config: dict, seed: int, device) -> dict[str, dict[str, torch.Tensor]]:
     """{table: {column: tensor}} on `device`, drawn from `seed` by the
     configuration's recipes."""
@@ -92,6 +122,21 @@ def make_tables(config: dict, seed: int, device) -> dict[str, dict[str, torch.Te
                 v = zipf_keys(n, float(col["s"]), int(col["fold"]), g, device).to(dtype)
             elif kind == "real":
                 v = real_values(n, float(col["low"]), float(col["high"]), dtype, g, device)
+            elif kind == "randint":
+                v = randint(n, col["low"], col["high"], g, device).to(dtype)
+            elif kind == "shift":
+                v = (cols[col["of"]].to(torch.int64)
+                     + randint(n, col["low"], col["high"], g, device)).to(dtype)
+            elif kind == "tpch_extendedprice":
+                v = (cols[col["quantity"]].to(torch.int64)
+                     * retail_price_cents(cols[col["partkey"]])).to(dtype)
+            elif kind == "tpch_returnflag":
+                ra = torch.where(randint(n, 0, 1, g, device) == 1, ord("R"), ord("A"))
+                v = torch.where(cols[col["receiptdate"]] > int(col["currentdate"]),
+                                ord("N"), ra).to(dtype)
+            elif kind == "tpch_linestatus":
+                v = torch.where(cols[col["shipdate"]] > int(col["currentdate"]),
+                                ord("O"), ord("F")).to(dtype)
             else:
                 raise ValueError(f"{tname}.{cname}: unknown column kind {kind!r}")
             cols[cname] = v

@@ -33,6 +33,33 @@ HELD_CONFIG = {
 }
 HELD = {"skew-groupby.served4": "served4", "skew-groupby.embedded": "embedded"}
 
+# lineitem's columns that TPC-H Q1 reads, at SF10's 59,986,052 rows, drawn
+# by dbgen's rules (TPC-H v3, clause 4.2.3): dates in days since
+# 1992-01-01, the order's date in [0, 2405] (ENDDATE - 151), CURRENTDATE
+# 1995-06-17 = 1263; decimals in hundredths; flags as ASCII codes. The
+# order's date is a column of its own that Q1 does not read, and each row
+# draws its own, so lines of one order share no date. No cell runs it yet:
+# the tests hold the recipes to the rules with it.
+Q1_CONFIG = {
+    "name": "tpch-q1-lineitem",
+    "tables": {"lineitem": {"rows": 59_986_052, "columns": {
+        "o_orderdate": {"kind": "randint", "low": 0, "high": 2405, "dtype": "int32"},
+        "l_quantity": {"kind": "randint", "low": 1, "high": 50, "dtype": "int64"},
+        "l_partkey": {"kind": "randint", "low": 1, "high": 2_000_000, "dtype": "int32"},
+        "l_extendedprice": {"kind": "tpch_extendedprice", "quantity": "l_quantity",
+                            "partkey": "l_partkey", "dtype": "int64"},
+        "l_discount": {"kind": "randint", "low": 0, "high": 10, "dtype": "int64"},
+        "l_tax": {"kind": "randint", "low": 0, "high": 8, "dtype": "int64"},
+        "l_shipdate": {"kind": "shift", "of": "o_orderdate", "low": 1, "high": 121,
+                       "dtype": "int32"},
+        "l_receiptdate": {"kind": "shift", "of": "l_shipdate", "low": 1, "high": 30,
+                          "dtype": "int32"},
+        "l_returnflag": {"kind": "tpch_returnflag", "receiptdate": "l_receiptdate",
+                         "currentdate": 1263, "dtype": "int8"},
+        "l_linestatus": {"kind": "tpch_linestatus", "shipdate": "l_shipdate",
+                         "currentdate": 1263, "dtype": "int8"}}}},
+}
+
 
 def cell_parts(cell: str, root: Path = ROOT) -> dict:
     """A cell's parts as `registry.cell_parts` gives them, or a held cell's,
@@ -50,13 +77,18 @@ def cell_parts(cell: str, root: Path = ROOT) -> dict:
     }
 
 
+def shrink_config(config: dict, shrink: int = SHRINK) -> dict:
+    """A copy of a configuration with every table's rows divided by `shrink`."""
+    cfg = copy.deepcopy(config)
+    for t in cfg["tables"].values():
+        t["rows"] = max(t["rows"] // shrink, 64)
+    return cfg
+
+
 def tiny_parts(cell: str, root: Path = ROOT, shrink: int = SHRINK) -> dict:
     """A cell's parts with every table's rows divided by `shrink`."""
     parts = cell_parts(cell, root)
-    cfg = copy.deepcopy(parts["config"])
-    for t in cfg["tables"].values():
-        t["rows"] = max(t["rows"] // shrink, 64)
-    parts["config"] = cfg
+    parts["config"] = shrink_config(parts["config"], shrink)
     return parts
 
 

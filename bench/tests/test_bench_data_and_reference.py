@@ -2,6 +2,8 @@
 references against the port's plain arms (its kernels' plain versions run
 for CPU tensors) at a tiny size."""
 import hashlib
+import json
+import time
 
 import numpy as np
 import pytest
@@ -9,18 +11,42 @@ import torch
 
 from bench import check, control, datagen, loop, refops, roofline
 
-from .conftest import HELD, tiny_parts
+from .conftest import HELD, HELD_CONFIG, Q1_CONFIG, shrink_config, tiny_parts
 
 CONFIG_CELLS = ["q18-sf10.embedded", "star4-sf10.served4", *HELD]
+
+# every TPC-H recipe over domains small enough that 20,000 rows reach both
+# ends of each range, and CURRENTDATE inside the dates' range
+RECIPES = {"name": "tpch-recipes", "tables": {"lineitem": {"rows": 20_000, "columns": {
+    "o_orderdate": {"kind": "randint", "low": 0, "high": 9, "dtype": "int32"},
+    "l_quantity": {"kind": "randint", "low": 1, "high": 3, "dtype": "int64"},
+    "l_partkey": {"kind": "randint", "low": 1_999_990, "high": 2_000_000, "dtype": "int32"},
+    "l_extendedprice": {"kind": "tpch_extendedprice", "quantity": "l_quantity",
+                        "partkey": "l_partkey", "dtype": "int64"},
+    "l_shipdate": {"kind": "shift", "of": "o_orderdate", "low": 1, "high": 4,
+                   "dtype": "int32"},
+    "l_receiptdate": {"kind": "shift", "of": "l_shipdate", "low": 1, "high": 3,
+                      "dtype": "int16"},
+    "l_returnflag": {"kind": "tpch_returnflag", "receiptdate": "l_receiptdate",
+                     "currentdate": 8, "dtype": "int8"},
+    "l_linestatus": {"kind": "tpch_linestatus", "shipdate": "l_shipdate", "currentdate": 8,
+                     "dtype": "int8"}}}}}
+# configurations that no cell runs, at the tests' size
+TEST_CONFIGS = {c["name"]: c for c in (shrink_config(HELD_CONFIG), RECIPES,
+                                       shrink_config(Q1_CONFIG))}
+
+
+def config_of(name: str) -> dict:
+    return TEST_CONFIGS[name] if name in TEST_CONFIGS else tiny_parts(name)["config"]
 
 
 def digest(tables):
     return {(t, c): v.clone() for t, cols in tables.items() for c, v in cols.items()}
 
 
-@pytest.mark.parametrize("cell", CONFIG_CELLS)
+@pytest.mark.parametrize("cell", [*CONFIG_CELLS, RECIPES["name"], Q1_CONFIG["name"]])
 def test_generator_is_a_function_of_the_seed(cell):
-    cfg = tiny_parts(cell)["config"]
+    cfg = config_of(cell)
     a, b = digest(datagen.make_tables(cfg, 2**31 + 3, "cpu")), \
         digest(datagen.make_tables(cfg, 2**31 + 3, "cpu"))
     c = digest(datagen.make_tables(cfg, 5, "cpu"))
@@ -46,19 +72,21 @@ def test_generator_recipe():
                           _payload(li.numpy(), 100, np.int64))
 
 
-# sha256 of the tables of the configurations that predate the zipf and real
-# recipes, at the tests' size from seed 2^31 + 3, as the generator drew them
-# before those recipes were added
+# sha256 of the tables of the older configurations at the tests' size from
+# seed 2^31 + 3: the listed cells' as the generator drew them before the
+# zipf and real recipes were added, the held configuration's as it drew
+# them before the TPC-H recipes were
 PINNED = {
     "q18-sf10.embedded": "7947884c58abfa49961e63adae9603447ec427fdcac0dc650042cb4b0f53a37e",
     "star4-sf10.served4": "00afcad10ac72cee7207e904ad10143a57ce29b53dc1871514ffa6c44f52c19e",
+    "skew-groupby": "12dc213879158ce22ee36c9661fb6b6bf5702324e0e507f0c613d386ad5600d8",
 }
 
 
 @pytest.mark.parametrize("cell", sorted(PINNED))
 def test_older_configurations_draw_the_same_tables(cell):
     h = hashlib.sha256()
-    for tname, cols in datagen.make_tables(tiny_parts(cell)["config"], 2**31 + 3, "cpu").items():
+    for tname, cols in datagen.make_tables(config_of(cell), 2**31 + 3, "cpu").items():
         for cname, v in cols.items():
             h.update(f"{tname}.{cname}:{v.dtype}:{v.numel()};".encode())
             h.update(v.numpy().tobytes())
@@ -121,6 +149,180 @@ def test_skew_recipe():
     # the values are drawn apart from the keys: key 0's rows have the mean
     # of all rows
     assert float(t["v"][t["k"] == 0].mean()) == pytest.approx(0.5, abs=0.02)
+
+
+def retail_price(p: int) -> int:
+    """P_RETAILPRICE in cents as TPC-H v3 clause 4.2.3 writes it:
+    (90000 + ((P_PARTKEY/10) modulo 20001) + 100 * (P_PARTKEY modulo 1000)) / 100."""
+    return 90000 + ((p // 10) % 20001) + 100 * (p % 1000)
+
+
+def lineitem(name: str, seed: int) -> dict[str, torch.Tensor]:
+    return datagen.make_tables(TEST_CONFIGS[name], seed, "cpu")["lineitem"]
+
+
+def test_randint_and_shift_reach_both_ends():
+    t = lineitem(RECIPES["name"], 2**31 + 13)
+    for col, spec in RECIPES["tables"]["lineitem"]["columns"].items():
+        assert t[col].dtype == getattr(torch, spec["dtype"]), col
+    for col, low, high in (("o_orderdate", 0, 9), ("l_quantity", 1, 3),
+                           ("l_partkey", 1_999_990, 2_000_000)):
+        assert (int(t[col].min()), int(t[col].max())) == (low, high), col
+    for col, of, low, high in (("l_shipdate", "o_orderdate", 1, 4),
+                               ("l_receiptdate", "l_shipdate", 1, 3)):
+        gap = t[col].to(torch.int64) - t[of].to(torch.int64)
+        assert (int(gap.min()), int(gap.max())) == (low, high), col
+        # the shift is drawn apart from the column it shifts
+        assert abs(float(torch.corrcoef(torch.stack([gap, t[of].long()]).double())[0, 1])) < 0.05
+
+
+def test_extendedprice_is_quantity_times_retail_price():
+    t = {c: v.tolist() for c, v in lineitem(RECIPES["name"], 2**31 + 13).items()}
+    assert t["l_extendedprice"] == [q * retail_price(p) for q, p in zip(t["l_quantity"],
+                                                                        t["l_partkey"])]
+    prices = [retail_price(p) for p in range(1_999_990, 2_000_001)]
+    assert (min(t["l_extendedprice"]), max(t["l_extendedprice"])) == (min(prices),
+                                                                      3 * max(prices))
+    assert retail_price(2_000_000) == 109_991
+    assert int(datagen.retail_price_cents(torch.tensor([2_000_000], dtype=torch.int32))) == 109_991
+    # the SF10 configuration on sampled rows
+    li = lineitem(Q1_CONFIG["name"], 2**31 + 17)
+    for i in np.random.default_rng(3).choice(li["l_partkey"].numel(), 500, replace=False):
+        assert int(li["l_extendedprice"][i]) == \
+            int(li["l_quantity"][i]) * retail_price(int(li["l_partkey"][i]))
+
+
+@pytest.mark.parametrize("name", [RECIPES["name"], Q1_CONFIG["name"]])
+def test_flags_follow_the_rules_row_by_row(name):
+    spec = TEST_CONFIGS[name]["tables"]["lineitem"]["columns"]
+    current = spec["l_returnflag"]["currentdate"]
+    assert spec["l_linestatus"]["currentdate"] == current
+    cols = {c: v.tolist() for c, v in lineitem(name, 2**31 + 19).items()}
+    flags = [chr(c) for c in cols["l_returnflag"]]
+    status = [chr(c) for c in cols["l_linestatus"]]
+    for i, (receipt, ship) in enumerate(zip(cols["l_receiptdate"], cols["l_shipdate"])):
+        assert (flags[i] == "N") if receipt > current else (flags[i] in "RA"), i
+        assert status[i] == ("O" if ship > current else "F"), i
+    assert set(flags) == {"A", "N", "R"} and set(status) == {"F", "O"}
+    # R or A by one fair draw a row
+    ra = [f for f in flags if f != "N"]
+    assert abs(ra.count("R") / len(ra) - 0.5) < 5 * 0.5 / len(ra) ** 0.5
+
+
+# TPC-H v3's dates as days since 1992-01-01
+Q1_CUT = 2436  # 1998-12-01 - 90 days: Q1's DELTA at its validation value
+CURRENTDATE = 1263  # 1995-06-17
+Q1_GROUPS = ("AF", "NF", "NO", "RF")
+
+
+def q1_analytic_shares() -> dict[str, float]:
+    """Each Q1 group's share of lineitem's rows, and the share the cut
+    keeps, worked out exactly from dbgen's rules: the order's date uniform
+    on [0, 2405], ship date that plus [1, 121], receipt date that plus
+    [1, 30], each uniform; R and A half each of what is not N."""
+    order = np.ones(2406, dtype=np.int64)
+    ship = np.convolve(order, np.ones(121, dtype=np.int64))  # ship date i + 1
+    receipt = np.convolve(ship, np.ones(30, dtype=np.int64))  # receipt date i + 2
+    n_ship, n_receipt = ship.sum(), receipt.sum()
+    ship_le = lambda d: int(ship[:d].sum()) / n_ship  # noqa: E731  P(ship <= d)
+    receipt_by_current = int(receipt[:CURRENTDATE - 1].sum()) / n_receipt
+    return {"AF": receipt_by_current / 2, "RF": receipt_by_current / 2,
+            "NF": ship_le(CURRENTDATE) - receipt_by_current,
+            "NO": ship_le(Q1_CUT) - ship_le(CURRENTDATE), "kept": ship_le(Q1_CUT)}
+
+
+def q1_answer(li: dict[str, torch.Tensor]) -> dict[str, dict]:
+    """TPC-H Q1 over these lineitem columns, on their device: per group
+    (returnflag, linestatus) of the rows shipped by the cut, the four sums
+    exact in int64 (price in cents, disc_price in 1e-4, charge in 1e-6),
+    the three averages in float64 and the count."""
+    kept = li["l_shipdate"] <= Q1_CUT
+    qty, price, disc, tax = (li[c].to(torch.int64) for c in (
+        "l_quantity", "l_extendedprice", "l_discount", "l_tax"))
+    disc_price = price * (100 - disc)
+    charge = disc_price * (100 + tax)
+    out = {}
+    for g in Q1_GROUPS:
+        m = kept & (li["l_returnflag"] == ord(g[0])) & (li["l_linestatus"] == ord(g[1]))
+        n = int(m.sum())
+        s = {c: int(torch.where(m, v, 0).sum()) for c, v in (
+            ("sum_qty", qty), ("sum_base_price", price), ("sum_disc_price", disc_price),
+            ("sum_charge", charge), ("sum_disc", disc))}
+        out[g] = {"sum_qty": s["sum_qty"], "sum_base_price": s["sum_base_price"],
+                  "sum_disc_price": s["sum_disc_price"], "sum_charge": s["sum_charge"],
+                  "avg_qty": s["sum_qty"] / n, "avg_price": s["sum_base_price"] / 100 / n,
+                  "avg_disc": s["sum_disc"] / 100 / n, "count_order": n}
+    return out
+
+
+def within_5_sd(counts: dict[str, int], n: int) -> dict[str, float]:
+    """Each group's share, and the kept share, minus the analytic one, in
+    binomial standard deviations at n rows."""
+    got = {**{g: counts[g] / n for g in Q1_GROUPS}, "kept": sum(counts.values()) / n}
+    want = q1_analytic_shares()
+    z = {k: (got[k] - p) / (p * (1 - p) / n) ** 0.5 for k, p in want.items()}
+    assert all(abs(v) < 5 for v in z.values()), z
+    return z
+
+
+def test_q1_analytic_shares():
+    want = {"AF": 0.246779, "NF": 0.006442, "NO": 0.485934, "RF": 0.246779, "kept": 0.985934}
+    assert q1_analytic_shares() == pytest.approx(want, abs=5e-7)
+
+
+@pytest.mark.parametrize("seed", [2**31 + 23, 3_000_000_029])
+def test_q1_groups_have_the_analytic_shares(seed):
+    n = TEST_CONFIGS[Q1_CONFIG["name"]]["tables"]["lineitem"]["rows"]
+    ans = q1_answer(lineitem(Q1_CONFIG["name"], seed))
+    within_5_sd({g: a["count_order"] for g, a in ans.items()}, n)
+
+
+def test_q1_answer_is_the_row_by_row_sum():
+    li = lineitem(Q1_CONFIG["name"], 2**31 + 29)
+    cols = {c: v.tolist() for c, v in li.items()}
+    want = {g: [0] * 6 for g in Q1_GROUPS}
+    for i, ship in enumerate(cols["l_shipdate"]):
+        if ship > Q1_CUT:
+            continue
+        q, e, d, t = (cols[c][i] for c in ("l_quantity", "l_extendedprice", "l_discount",
+                                             "l_tax"))
+        w = want[chr(cols["l_returnflag"][i]) + chr(cols["l_linestatus"][i])]
+        for j, v in enumerate((q, e, e * (100 - d), e * (100 - d) * (100 + t), d, 1)):
+            w[j] += v
+    got = q1_answer(li)
+    for g, (q, e, dp, ch, d, n) in want.items():
+        assert got[g] == {"sum_qty": q, "sum_base_price": e, "sum_disc_price": dp,
+                          "sum_charge": ch, "avg_qty": q / n, "avg_price": e / 100 / n,
+                          "avg_disc": d / 100 / n, "count_order": n}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [2**31 + 31, 3_000_000_037, 4_000_000_039])
+def test_q1_columns_at_sf10_on_the_card(card, seed):
+    """Draws the Q1 configuration at SF10 on the card and prints one JSON
+    line: the draw's seconds and bytes, the peak, and Q1's answer."""
+    n = Q1_CONFIG["tables"]["lineitem"]["rows"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tables = datagen.make_tables(Q1_CONFIG, seed, card)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ans = q1_answer(tables["lineitem"])
+    z = within_5_sd({g: a["count_order"] for g, a in ans.items()}, n)
+    # the int64 sums do not wrap: a float64 sum of each group's charge agrees
+    li = tables["lineitem"]
+    charge = (li["l_extendedprice"].double() * (100 - li["l_discount"]).double()
+              * (100 + li["l_tax"]).double())
+    for g, a in ans.items():
+        m = (li["l_shipdate"] <= Q1_CUT) & (li["l_returnflag"] == ord(g[0])) \
+            & (li["l_linestatus"] == ord(g[1]))
+        assert float(torch.where(m, charge, 0).sum()) == pytest.approx(a["sum_charge"], rel=1e-9)
+    print("Q1_DRAW " + json.dumps({
+        "seed": seed, "rows": n, "draw_s": draw_s, "table_bytes": datagen.table_bytes(tables),
+        "draw_peak_bytes": peak, "device": torch.cuda.get_device_name(), "z": z,
+        "answer": ans}))
 
 
 def test_payload_refuses_a_wrapping_product():
