@@ -89,7 +89,10 @@
    plan's last pass (8); the rank kernel is also timed at 257 and 8 bins.
    The probe runs on the join's partitioned key columns, and again as a
    served query runs it (3s): both columns padded to their buckets, the
-   padding's KEY_SENTINEL rows after the last partition. The segmented
+   padding's KEY_SENTINEL rows after the last partition. The partition
+   plan's pass scatter runs at that padded probe side's 2^26 rows (its
+   second pass), beside the two index_puts of its plain version and the
+   gather and index_put it replaced. The segmented
    sums must equal their plain version bit for bit (keys, sums, counts and
    the number of partials), and a second launch must give the same bytes.
    The gather has a row for each of PHJ-OM's two maps (build side, probe
@@ -210,7 +213,7 @@
    (`repro_torch.analysis.kernel_lint`): every registered shape's declared
    launch (threads, dynamic shared memory, grid) equals what the kernel's
    library says its launch would use (`<name>_launch_config`, the launch's
-   own host helper), and every compiled instance of the eight kernels fits
+   own host helper), and every compiled instance of the nine kernels fits
    the H100 (threads, shared memory, registers) and spills no more than
    `DECLARED_SPILLS` allows it (nothing, for an instance it does not name);
    one line per instance with its threads, dynamic shared memory at J2's
@@ -270,12 +273,13 @@ AGGS = {"s1": "sum", "r1": "max", "r2": "count"}
 # the partition plan runs 3 passes per join side (2^18 + 1 partitions) and
 # 2 for the group-by (2^16 + 1, top partition as a tail class); one probe;
 # one gather per payload column
-EXPECTED_LAUNCHES = {"block_histograms": 8, "partition_ranks": 8, "hash_probe": 1,
+EXPECTED_LAUNCHES = {"block_histograms": 8, "partition_ranks": 8, "pass_scatter": 8,
+                     "hash_probe": 1,
                      "clustered_gather": 4, "lower_bound": 0, "histogram": 0}
 # the group-join: the same two plans as the join, one fused probe pass, no
 # gather and no group-by partition
 GJ_AGGS = {"s1": "sum", "r1": "sum", "r2": "count"}
-GJ_LAUNCHES = {"block_histograms": 6, "partition_ranks": 6, "hash_probe": 0,
+GJ_LAUNCHES = {"block_histograms": 6, "partition_ranks": 6, "pass_scatter": 6, "hash_probe": 0,
                "clustered_gather": 0, "probe_agg": 1, "segsum_partials": 0,
                "lower_bound": 0, "histogram": 0}
 # sort_pallas with a sum and a count: the hoisted count pass and one pass
@@ -283,11 +287,13 @@ GJ_LAUNCHES = {"block_histograms": 6, "partition_ranks": 6, "hash_probe": 0,
 SP_AGGS = {"s1": "sum", "r2": "count"}
 SP_LAUNCHES = {"block_histograms": 0, "partition_ranks": 0, "hash_probe": 0,
                "clustered_gather": 0, "probe_agg": 0, "segsum_partials": 2,
-               "lower_bound": 0, "histogram": 0}
+               "lower_bound": 0, "histogram": 0, "pass_scatter": 0}
 # SMJ with pk_fk: one lower-bound sweep; the sort plans are stable sorts
 SMJ_LAUNCHES = dict.fromkeys(SP_LAUNCHES, 0) | {"lower_bound": 1}
-# the radix sort plan of int32 keys: four 8-bit rank passes
-RADIX_LAUNCHES = dict.fromkeys(SP_LAUNCHES, 0) | {"block_histograms": 4, "partition_ranks": 4}
+# the radix sort plan of int32 keys: four 8-bit rank passes, each moved by
+# one scatter
+RADIX_LAUNCHES = dict.fromkeys(SP_LAUNCHES, 0) | {"block_histograms": 4, "partition_ranks": 4,
+                                                  "pass_scatter": 4}
 NO_LAUNCHES = dict.fromkeys(SP_LAUNCHES, 0)
 # the skewed group-by table: benchmarks/groupby_bench.py's skew shape (keys
 # (zipf(1.5) - 1) % 4096, int32; float32 values uniform in [0, 1)) at
@@ -319,7 +325,7 @@ LM_REQUESTS, LM_MAX_TOKENS, LM_BATCH, LM_MAX_LEN = 16, 16, 8, 128
 LM_CPU_LOGIT_RTOL, LM_CPU_ROUTE_GAP = 1e-3, 1e-5
 # kernel-name substrings of the decode step's device time, by group
 LM_KERNEL_GROUPS = {"matmuls": ("gemm", "cutlass", "xmma", "sm90_", "nvjet", "cublas"),
-                    "routing kernels": ("block_histograms", "partition_ranks"),
+                    "routing kernels": ("block_histograms", "partition_ranks", "pass_scatter"),
                     "softmax": ("softmax",),
                     "gathers, scatters and copies": ("index", "gather", "scatter", "copy",
                                                      "cat", "Memcpy", "Memset")}
@@ -337,7 +343,7 @@ TRAIN_CPU_LOSS_RTOL, TRAIN_CPU_GRAD_TOL = 1e-5, 1e-4
 # kernel-name substrings of the train step's device time, by group (the
 # first group whose substring a kernel's name holds)
 TRAIN_KERNEL_GROUPS = {"matmuls": LM_KERNEL_GROUPS["matmuls"],
-                       "routing kernels": ("block_histograms", "partition_ranks"),
+                       "routing kernels": ("block_histograms", "partition_ranks", "pass_scatter"),
                        "softmax": ("softmax",),
                        "reductions": ("reduce",),
                        "gathers, scatters and copies": LM_KERNEL_GROUPS[
@@ -385,7 +391,7 @@ PIPE_BATCH, PIPE_SEQ, PIPE_STEPS = 8, 512, 10
 # partitions for U, the top one a tail class; 2^14 + 1 for I), probes once
 # and gathers each payload column: U's 3 and the probe side's 1, then I's 3
 # and the probe side's 4
-PIPE_LAUNCHES = {"block_histograms": 8, "partition_ranks": 8, "hash_probe": 2,
+PIPE_LAUNCHES = {"block_histograms": 8, "partition_ranks": 8, "pass_scatter": 8, "hash_probe": 2,
                  "clustered_gather": 11, "probe_agg": 0, "segsum_partials": 0,
                  "lower_bound": 0, "histogram": 0}
 # the vision and audio cells, served in bf16 as (u) serves, with 8 requests:
@@ -407,6 +413,8 @@ KERNEL_SOURCES = {
                         "src/repro/kernels/segsum.py:43"),
     "lower_bound": ("src/repro_torch/csrc/lower_bound.cu", "src/repro/kernels/merge_join.py:43"),
     "histogram": ("src/repro_torch/csrc/histogram.cu", "src/repro/kernels/histogram.py:34"),
+    "pass_scatter": ("src/repro_torch/csrc/pass_scatter.cu",
+                     "none: the LSD passes' ATen index and index_put glue"),
 }
 
 
@@ -548,7 +556,7 @@ def lm_phase(torch, card, record, record_hist, profile_run, results) -> None:
                   for _ in range(LM_REQUESTS)]
     serve_counters = ("resilience.serve_shed", "resilience.serve_retries",
                       "resilience.serve_evictions", "resilience.serve_deadline_evictions")
-    routing = ("block_histograms", "partition_ranks")
+    routing = ("block_histograms", "partition_ranks", "pass_scatter")
 
     def lm_serve():
         """The 16 requests through a fresh engine; per step: host ms after a
@@ -806,7 +814,7 @@ def train_phase(torch, card, record, record_hist, profile_run, results) -> None:
                   + 2 * 3 * tokens * cfg.d_model * m.shared_d_ff)
     exec_flop = 4 * cfg.num_layers * layer_flop + 3 * 2 * tokens * cfg.d_model * cfg.padded_vocab
     data = make_batch_fn(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0, cfg=cfg, device=dev)
-    routing = ("block_histograms", "partition_ranks")
+    routing = ("block_histograms", "partition_ranks", "pass_scatter")
     per_step = {k: 2 * cfg.num_layers if k in routing else 0 for k in ops.launch_counts()}
 
     def run(steps=TRAIN_STEPS):
@@ -1726,7 +1734,7 @@ def dist_phase(torch, card) -> None:
     free()
     cfg = get_config(LM_ARCH).replace(num_layers=TRAIN_LAYERS)
     data = make_batch_fn(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0, cfg=cfg, device=dev)
-    routing = ("block_histograms", "partition_ranks")
+    routing = ("block_histograms", "partition_ranks", "pass_scatter")
 
     def run(mesh, rules):
         """DIST_STEPS steps from the seed-0 weights; per step the loss, the
@@ -2232,8 +2240,8 @@ def main() -> None:
     clock.done("5g radix sort plan")
 
     # -- 5h. the non-partitioned hash join, beside PHJ-OM and SMJ-OM --------
-    phj_launches = dict(NO_LAUNCHES, block_histograms=6, partition_ranks=6, hash_probe=1,
-                        clustered_gather=4)
+    phj_launches = dict(NO_LAUNCHES, block_histograms=6, partition_ranks=6, pass_scatter=6,
+                        hash_probe=1, clustered_gather=4)
     (_, _), phj_info = run_path("j2_phj_om", lambda: join(R, S, algorithm="phj"), phj_launches)
     # PHJ-OM's phases, warm, each edge a device synchronisation
     phj_phases = {}
@@ -2330,7 +2338,7 @@ def main() -> None:
             under(spec, lambda: groupby_partition_checked(
                 T, key="k", aggs=AGGS, num_groups=N_GROUPS, with_report=True)),
             dict(NO_LAUNCHES, block_histograms=2 if not spec else 3,
-                 partition_ranks=2 if not spec else 3))
+                 partition_ranks=2 if not spec else 3, pass_scatter=2 if not spec else 3))
         check(int(gqc) == int(gcnt), f"groupby_partition_checked {spec}: group count differs")
         if not spec:
             check(len(rep.attempts) == 1, f"groupby_partition_checked: {rep.summary()}")
@@ -2382,7 +2390,7 @@ def main() -> None:
             for k in required:
                 need[k] = need.get(k, 0) + 1
 
-        plan_passes = ("block_histograms", "partition_ranks")
+        plan_passes = ("block_histograms", "partition_ranks", "pass_scatter")
         for node in plan_nodes(plan.root):
             if isinstance(node, PH.PJoin) and node.algorithm == "phj":
                 add(plan_passes + ("hash_probe", "clustered_gather")
@@ -2875,7 +2883,43 @@ def main() -> None:
            served_bytes, live_build + n_s, plain_reps=3,
            shape=f"3s: {n_s + pad_s} probe rows, {pad_s} after the last of {P} partitions, "
                  f"against {n_r + pad_r} build rows")
-    del vid, hit, served_args, kr_pad, ks_pad, perm, off, sz
+    del vid, hit, served_args, kr_pad, perm, off, sz
+
+    # the pass's scatter at the served probe side's 2^26 rows: the plan's
+    # second pass (bits 8-15 of the digits in the order the first left), which
+    # moves the first pass's permutation and the digits; 20 bytes a row. The
+    # library is the plain version's two index_puts; the log adds the glue
+    # this kernel replaced for the same pass: the digits gathered through the
+    # permutation, then the permutation scattered
+    sdig = hj._digits(ks_pad, p_bits, True)
+    n_pad = sdig.shape[0]
+    d1 = krp.partition_ranks((sdig & 255).contiguous(), 256)[0]
+    perm1, keys1 = krp.pass_scatter(d1, sdig, shift=0, bits=8)
+    d2 = krp.partition_ranks(((keys1 >> 8) & 255).contiguous(), 256)[0]
+    second = dict(shift=8, bits=8)
+    check(torch.equal(keys1, sdig[perm1]), "pass_scatter: the first pass's keys are not the "
+                                           "digits in its permutation's order")
+
+    def index_puts():
+        return (torch.empty_like(perm1).index_put_((d2,), perm1),
+                torch.empty_like(keys1).index_put_((d2,), keys1))
+
+    def parent_glue():
+        cur = sdig[perm1]
+        new = torch.empty_like(perm1)
+        new[d2] = perm1
+        return cur, new
+
+    record("pass_scatter", list(krp.pass_scatter(d2, keys1, perm1, **second)),
+           list(ref.pass_scatter(d2, keys1, perm1)),
+           lambda: krp.pass_scatter(d2, keys1, perm1, **second),
+           lambda: ref.pass_scatter(d2, keys1, perm1), index_puts, 20 * n_pad,
+           library="two index_put_", shape=f"{n_pad} rows: a served probe side's second pass")
+    log(f"pass_scatter: the glue it replaced for the same pass (gather + index_put) "
+        f"{cuda_ms(torch, parent_glue):.6f} ms; the first pass (no permutation read) "
+        f"{cuda_ms(torch, lambda: krp.pass_scatter(d1, sdig, shift=0, bits=8)):.6f} ms, bound "
+        f"{16 * n_pad / HBM_BYTES_PER_S * 1e3:.6f} ms")
+    del ks_pad, sdig, d1, perm1, keys1, d2
 
     # the group-join's probe_agg on its padded layout: group key k, s1 from
     # the probe side, r1 from the build side (as phj_groupjoin lays them out)
@@ -3077,13 +3121,14 @@ def main() -> None:
 
     smj_rows = lex_sorted(T5, total)
     del T5
-    # 2^20 + 1 partitions: three plan passes per side, each one histogram
-    # and one rank launch; GFTR gathers r1 and s1; no probe kernel
+    # 2^20 + 1 partitions: three plan passes per side, each one histogram,
+    # one rank and one scatter launch; GFTR gathers r1 and s1; no probe kernel
     check(bits5 == 20, f"J5: {bits5} partition bits, expected 20")
     passes5 = 6
     phj5_launches = {"om": dict(NO_LAUNCHES, block_histograms=passes5, partition_ranks=passes5,
-                                clustered_gather=2),
-                     "um": dict(NO_LAUNCHES, block_histograms=passes5, partition_ranks=passes5)}
+                                pass_scatter=passes5, clustered_gather=2),
+                     "um": dict(NO_LAUNCHES, block_histograms=passes5, partition_ranks=passes5,
+                                pass_scatter=passes5)}
     for mat, pattern in (("om", "gftr"), ("um", "gfur")):
         def phj_mn(phases=None, pattern=pattern):
             return join(R5, S5, algorithm="phj", pattern=pattern, mode="mn", out_size=total,
@@ -3118,7 +3163,8 @@ def main() -> None:
         # per join: three plan passes per side, one probe, a gather for the
         # dimension's payload and for each probe-side column
         "phj": dict(NO_LAUNCHES, block_histograms=6 * n_j, partition_ranks=6 * n_j,
-                    hash_probe=n_j, clustered_gather=sum(i + 2 for i in range(n_j))),
+                    pass_scatter=6 * n_j, hash_probe=n_j,
+                    clustered_gather=sum(i + 2 for i in range(n_j))),
         "smj": dict(NO_LAUNCHES, lower_bound=n_j),
     }
     seqs = {}

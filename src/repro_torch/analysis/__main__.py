@@ -9,7 +9,7 @@ Sections:
               m:n modes), all five group-by strategies, the group-join on
               the engine's arm, and the partition and sort planners;
   kernels   — the launch-configuration lint (`kernel_lint`): every instance
-              of the eight Hopper kernels at every registered shape against
+              of the nine Hopper kernels at every registered shape against
               the H100's limits, and the sources' atomics. With
               `--device cpu` the declared launches and the source checks;
               on the card also the C side's launch configurations and the

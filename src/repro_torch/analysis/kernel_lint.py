@@ -1,4 +1,4 @@
-"""Launch-configuration lint for the port's eight Hopper kernels: the port's
+"""Launch-configuration lint for the port's nine Hopper kernels: the port's
 counterpart of the JAX package's `analysis/kernel_lint.py`.
 
 The reference judges each `pallas_call` from its traced jaxpr. Here every
@@ -88,6 +88,7 @@ INSTANCES = {
     "segsum_partials": ("segsum_partials<4>", "segsum_partials<8>"),
     "lower_bound": tuple(f"lower_bound<{kb}, {per}>" for kb in (4, 8) for per in (8, 4, 2, 1)),
     "histogram": ("histogram<false>", "histogram<true>"),
+    "pass_scatter": ("pass_scatter<false>", "pass_scatter<true>"),
 }
 KERNELS = tuple(INSTANCES)
 
@@ -311,16 +312,30 @@ def _histogram_decl(a, sms, per_sm):
     return Launch("histogram", inst, 256, 4 * bins if shared else 0, _grid(want, sms * 8))
 
 
+def _pass_scatter(a, sms, per_sm):
+    # pass_scatter.cu, config: 1,024 threads staging chunks of 8,192 rows
+    # (destinations, permutation entries, keys), 260 counts, least
+    # destinations and offsets, 32 warp sums and a flag; vector loads where
+    # dest, the keys and perm_in lie on 16-byte boundaries
+    n = a["n"]
+    vec = all(a.get(k, 0) % 16 == 0 for k in ("dest_addr", "dig_addr", "perm_addr"))
+    inst = INSTANCES["pass_scatter"][int(vec)]
+    smem = (3 * 8192 + 3 * 260 + 32 + 1) * 4
+    fill = sms * per_sm(inst, 1024, smem)
+    return Launch("pass_scatter", inst, 1024, smem, _grid(_cdiv(n, 8192), fill), opt_in=smem)
+
+
 _DECLARE = {"block_histograms": _block_histograms, "partition_ranks": _partition_ranks,
             "hash_probe": _hash_probe, "clustered_gather": _clustered_gather,
             "probe_agg": _probe_agg, "segsum_partials": _segsum_partials,
-            "lower_bound": _lower_bound, "histogram": _histogram_decl}
+            "lower_bound": _lower_bound, "histogram": _histogram_decl,
+            "pass_scatter": _pass_scatter}
 
 # the argument that counts the rows a wrapper launches for; at 0 it
 # launches nothing (and the gather at no source row writes zeros)
 _ROWS = {"block_histograms": "n", "partition_ranks": "n", "hash_probe": "n_probe",
          "clustered_gather": "n", "probe_agg": "num_blocks", "segsum_partials": "n",
-         "lower_bound": "n_probe", "histogram": "n"}
+         "lower_bound": "n_probe", "histogram": "n", "pass_scatter": "n"}
 
 
 def declare(kernel: str, args: dict, sms: int = SMS, per_sm=_estimate_per_sm) -> Launch | None:
@@ -506,6 +521,16 @@ def _shapes():
     add("histogram", "edge: digits off a 16-byte boundary", n=J2_S, num_bins=256, addr=4)
     add("histogram", "edge: 0 rows", n=0, num_bins=256)
     add("histogram", "edge: 1 row", n=1, num_bins=256)
+
+    add("pass_scatter", "J2: S's plan passes, 60M rows", n=J2_S)
+    add("pass_scatter", "served: a probe side's plan passes, 2^26 rows", n=1 << 26)
+    add("pass_scatter", "MoE routing: 32 digits", n=32)
+    add("pass_scatter", "MoE train: 8,192 digits", n=8192)
+    add("pass_scatter", "pipeline: U's plan, 4,194,304 rows", n=PIPE_U)
+    add("pass_scatter", "edge: 3 rows (no whole group)", n=3)
+    add("pass_scatter", "edge: keys off a 16-byte boundary", n=J2_S, dig_addr=4)
+    add("pass_scatter", "edge: 0 rows", n=0)
+    add("pass_scatter", "edge: 1 row", n=1)
     return s
 
 
@@ -532,6 +557,8 @@ def _c_args(kernel: str, a: dict) -> tuple:
         "segsum_partials": lambda: (a["n"], a.get("tile", _segsum.TILE), a["key_bytes"]),
         "lower_bound": lambda: (a["n_probe"], a["key_bytes"]),
         "histogram": lambda: (p(a.get("addr", 0)), a["n"], a["num_bins"]),
+        "pass_scatter": lambda: (p(a.get("dest_addr", 0)), p(a.get("dig_addr", 0)),
+                                 p(a.get("perm_addr", 0)), a["n"]),
     }[kernel]()
 
 
@@ -593,6 +620,7 @@ class AllowedAtomic:
 _COUNTS = "integer counts commute: the bin's total is the same in any order"
 _FIRST_WINS = ("the first-wins insert: the CAS only tells an empty slot from a taken one, "
                "and a key held twice keeps the least value by atomicMin, in any order")
+_LEAST_DEST = "a bin's least destination in the chunk: a minimum commutes"
 ALLOWED_ATOMICS = (
     AllowedAtomic("block_histograms.cu", "atomicAdd", "&hist[d]", _COUNTS),
     AllowedAtomic("histogram.cu", "atomicAdd", "&hist[d]", _COUNTS),
@@ -614,6 +642,10 @@ ALLOWED_ATOMICS = (
                   "each row sets its lane's bit in its slot's word: bits commute"),
     AllowedAtomic("probe_agg.cu", "atomicOr", "&chunk_words[slot]",
                   "each row sets its chunk's bit in its slot's word: bits commute"),
+    AllowedAtomic("pass_scatter.cu", "atomicAdd", "&cnt[b]", _COUNTS),
+    AllowedAtomic("pass_scatter.cu", "atomicAdd", "&cnt[b0]", _COUNTS),
+    AllowedAtomic("pass_scatter.cu", "atomicMin", "&lo[b]", _LEAST_DEST),
+    AllowedAtomic("pass_scatter.cu", "atomicMin", "&lo[b0]", _LEAST_DEST),
     AllowedAtomic("lower_bound.cu", "atomicMax", "&tile_hi",
                   "a tile's largest bound: a maximum commutes"),
     AllowedAtomic("segsum_partials.cu", "atomicAdd", "state",

@@ -2,7 +2,8 @@
 versions, for the paper's hot spots on the join and group-by path:
 
   histogram        global digit histogram
-  radix_partition  per-tile digit histograms and stable partition ranks,
+  radix_partition  per-tile digit histograms, stable partition ranks and
+                   each pass's scatter of the permutation and its keys,
                    composed into the sort-free multi-pass partition and
                    sort planners
   merge_join       lower bounds of sorted probe keys (SMJ match finding)

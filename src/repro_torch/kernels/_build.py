@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("block_histograms", "partition_ranks", "hash_probe", "clustered_gather", "probe_agg",
-           "segsum_partials", "lower_bound", "histogram")
+           "segsum_partials", "lower_bound", "histogram", "pass_scatter")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +44,7 @@ SIGNATURES = {
                         "segsum_partials_state_words": (_L, _I)},
     "lower_bound": {"lower_bound": (_P, _I, _P, _L, _I, _P, _P, _I)},
     "histogram": {"histogram": (_P, _L, _I, _P, _P, _I)},
+    "pass_scatter": {"pass_scatter": (_P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _I)},
 }
 
 # argtypes of each library's `<name>_launch_config`: the launch's own
@@ -58,6 +59,7 @@ LAUNCH_CONFIG_ARGS = {
     "segsum_partials": (_L, _I, _I),
     "lower_bound": (_L, _I),
     "histogram": (_P, _L, _I),
+    "pass_scatter": (_P, _P, _P, _L),
 }
 for _name, _args in LAUNCH_CONFIG_ARGS.items():
     SIGNATURES[_name] |= {

@@ -31,7 +31,7 @@ SMEM_PER_BLOCK = 232_448
 
 # One launch counter per hand-written kernel.
 KERNELS = ("block_histograms", "partition_ranks", "hash_probe", "clustered_gather",
-           "probe_agg", "segsum_partials", "lower_bound", "histogram")
+           "probe_agg", "segsum_partials", "lower_bound", "histogram", "pass_scatter")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 # Auditors watching kernel calls (`analysis.dispatch_audit`); empty unless a

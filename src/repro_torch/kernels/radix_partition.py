@@ -11,8 +11,12 @@ the order matters and atomics only where it does not:
 `partition_plan` composes LSD passes of at most 8 bits into one gather-form
 permutation: pass k ranks bits [8k, 8k+8) of the digit over the order left
 by pass k-1, and stability makes the composition equal the single stable
-partition on all bits. No comparison sort anywhere, so the plan is linear
-in n. `sort_plan_radix` composes the same passes over whole int32 keys.
+partition on all bits. Each pass ends in one scatter by its destinations
+that moves the permutation and the digits together (`pass_scatter`, a CUDA
+kernel), so no pass gathers through the composed permutation and the last
+leaves the digits sorted. No comparison sort anywhere, so the plan is
+linear in n. `sort_plan_radix` composes the same passes over whole int32
+keys.
 
 For a CPU tensor each pass runs the kernels' plain versions (`ref`), so the
 composition itself is tested without a card.
@@ -120,34 +124,75 @@ def partition_ranks(digits: torch.Tensor, num_bins: int, *, tile: int = TILE):
     return dest, offsets, sizes
 
 
-def _compose_lsd(extract_digit, n: int, total_bits: int, pass_bits: int,
-                 tail_mask, device) -> torch.Tensor:
-    """Compose stable LSD passes into one gather-form permutation.
+def pass_scatter(dest: torch.Tensor, digits: torch.Tensor, perm: torch.Tensor | None = None, *,
+                 shift: int = 0, bits: int = PASS_BITS, tail_key: int | None = None):
+    """Move the running permutation and the keys it orders by one pass's
+    destinations, in one launch: (perm_out, dig_out) int32 with
+    perm_out[dest[i]] = perm[i] (i itself where perm is None, a first pass)
+    and dig_out[dest[i]] = digits[i]. dest must be a permutation of [0, n).
 
-    extract_digit(perm, bit, bits) returns the pass digits IN CURRENT ORDER
-    (of source rows perm[0..n)). `tail_mask`, when given, marks rows of a
-    dedicated trailing class (the planner's sentinel partition): each pass
-    ranks them into one extra bin past the bit bins, which keeps them stably
-    behind every real digit without widening the bit passes. Each pass costs
-    one rank computation plus one n-sized scatter that folds its
-    destinations into the running permutation."""
-    perm = torch.arange(n, dtype=torch.int32, device=device)
+    shift, bits and tail_key name the pass's digit of a key (as
+    `_compose_lsd` ranks it): the kernel groups each bin's rows before it
+    writes them, so that its stores are contiguous. The result does not
+    depend on them."""
+    if not dest.is_cuda:
+        return ref.pass_scatter(dest, digits, perm)
+    if not 0 <= bits <= PASS_BITS or not 0 <= shift < 32:
+        raise ValueError(f"a pass's digit is at most {PASS_BITS} bits from a shift in [0, 32), "
+                         f"got {bits} bits from {shift}")
+    n = dest.shape[0]
+    for name, t in (("dest", dest), ("digits", digits), ("perm", perm)):
+        if t is None:
+            continue
+        if t.dtype != torch.int32 or tuple(t.shape) != (n,) or not t.is_contiguous() \
+                or t.device != dest.device:
+            raise TypeError(f"{name} must be a contiguous ({n},) int32 tensor on {dest.device}, "
+                            f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if n >= 1 << 31:
+        raise ValueError(f"a pass moves at most 2^31 - 1 rows (int32 positions), got {n}")
+    perm_out = torch.empty(n, dtype=torch.int32, device=dest.device)
+    dig_out = torch.empty(n, dtype=torch.int32, device=dest.device)
+    if n == 0:
+        return perm_out, dig_out
+    lib = _build.load("pass_scatter")
+    err = lib.pass_scatter(dest.data_ptr(), digits.data_ptr(),
+                           None if perm is None else perm.data_ptr(), n, shift, bits,
+                           0 if tail_key is None else tail_key, tail_key is not None,
+                           perm_out.data_ptr(), dig_out.data_ptr(), *_build.launch_on(dest))
+    _build.check(lib, "pass_scatter", err)
+    LAUNCHES["pass_scatter"] += 1
+    return perm_out, dig_out
+
+
+def _compose_lsd(keys: torch.Tensor, total_bits: int, pass_bits: int,
+                 tail_key: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compose stable LSD passes over int32 `keys` into one gather-form
+    permutation. Returns (perm, keys[perm]).
+
+    Pass k ranks bits [bit, bit + bits) of each row's key. `tail_key`, when
+    given, marks rows of a dedicated trailing class (the planner's sentinel
+    partition, key == tail_key): each pass ranks them into one extra bin past
+    the bit bins, which keeps them stably behind every real digit without
+    widening the bit passes. Each pass reads its digits from the keys in the
+    current order, ranks them, and moves the permutation and the keys
+    together by one scatter through its destinations (`pass_scatter`), so
+    the keys are never gathered through the composed permutation and come
+    out sorted. A pass's digits are freed before its scatter allocates, and
+    its destinations before the next pass's digits."""
+    perm = None
     bit = 0
-    first = True
-    while first or bit < total_bits:
+    while perm is None or bit < total_bits:
         bits = min(pass_bits, max(total_bits - bit, 0))
-        nb = (1 << bits) + (1 if tail_mask is not None else 0)
-        pd = extract_digit(perm, bit, bits)
-        if tail_mask is not None:
-            tm = tail_mask if first else tail_mask[perm]
-            pd = torch.where(tm, nb - 1, pd)
-        dest = partition_ranks(pd.contiguous(), nb)[0]
-        new = torch.empty_like(perm)
-        new[dest] = perm  # dest is a permutation: every slot written once
-        perm = new
+        nb = (1 << bits) + (tail_key is not None)
+        pd = (keys >> bit).bitwise_and_((1 << bits) - 1)
+        if tail_key is not None:
+            pd.masked_fill_(keys == tail_key, nb - 1)
+        dest = partition_ranks(pd, nb)[0]
+        del pd
+        perm, keys = pass_scatter(dest, keys, perm, shift=bit, bits=bits, tail_key=tail_key)
+        del dest
         bit += bits
-        first = False
-    return perm
+    return perm, keys
 
 
 def partition_plan(digits: torch.Tensor, num_partitions: int, *, carry=()):
@@ -165,20 +210,13 @@ def partition_plan(digits: torch.Tensor, num_partitions: int, *, carry=()):
     rows), the top partition is ranked as a tail class inside each pass
     instead of paying an extra whole pass for one bin."""
     n = digits.shape[0]
-    digits = digits.to(torch.int32)
+    digits = digits.to(torch.int32).contiguous()
     B = num_partitions
     full_bits = max(1, (B - 1).bit_length())
     tail_bits = max((B - 2).bit_length(), 0) if B >= 2 else 0
     use_tail = B >= 2 and ceil_div(tail_bits, PASS_BITS) < ceil_div(full_bits, PASS_BITS)
-    tail_mask = (digits == B - 1) if use_tail else None
     total_bits = tail_bits if use_tail else full_bits
-
-    def extract(perm, bit, bits):
-        cur = digits if bit == 0 else digits[perm]
-        return (cur >> bit) & ((1 << bits) - 1)
-
-    perm = _compose_lsd(extract, n, total_bits, PASS_BITS, tail_mask, digits.device)
-    dsort = digits[perm]  # sorted by construction
+    perm, dsort = _compose_lsd(digits, total_bits, PASS_BITS, B - 1 if use_tail else None)
     offsets = torch.searchsorted(
         dsort, torch.arange(B, dtype=torch.int32, device=digits.device), out_int32=True)
     sizes = torch.diff(offsets, append=torch.full((1,), n, dtype=torch.int32,
@@ -194,12 +232,7 @@ def sort_plan_radix(keys: torch.Tensor):
     perm int32), equal to a stable sort's."""
     if keys.dtype != torch.int32:
         raise TypeError(f"the radix sort plan takes int32 keys, got {keys.dtype}")
-    u = keys ^ torch.iinfo(torch.int32).min
-
-    def extract(perm, bit, bits):
-        cur = u if bit == 0 else u[perm]
-        # the mask drops the sign bits an arithmetic shift brings in
-        return (cur >> bit) & ((1 << bits) - 1)
-
-    perm = _compose_lsd(extract, keys.shape[0], 32, PASS_BITS, None, keys.device)
-    return keys[perm], perm
+    flip = torch.iinfo(torch.int32).min
+    # each pass's mask drops the sign bits an arithmetic shift brings in
+    perm, u_sorted = _compose_lsd((keys ^ flip).contiguous(), 32, PASS_BITS, None)
+    return u_sorted ^ flip, perm

@@ -45,6 +45,17 @@ def partition_ranks(digits: torch.Tensor, num_bins: int) -> torch.Tensor:
     return torch.where(valid, dest, -1)
 
 
+def pass_scatter(dest: torch.Tensor, digits: torch.Tensor, perm: torch.Tensor | None = None):
+    """One LSD pass's move (kernels/radix_partition.pass_scatter): (perm_out,
+    dig_out) int32 with perm_out[dest[i]] = perm[i] (i where perm is None)
+    and dig_out[dest[i]] = digits[i]; dest is a permutation of [0, n)."""
+    if perm is None:
+        perm = torch.arange(dest.shape[0], dtype=torch.int32, device=dest.device)
+    perm_out = torch.empty_like(perm).index_put_((dest,), perm)
+    dig_out = torch.empty_like(digits).index_put_((dest,), digits)
+    return perm_out, dig_out
+
+
 def lower_bound(build_sorted: torch.Tensor, probe: torch.Tensor) -> torch.Tensor:
     """#{i : build_sorted[i] < probe[j]} per probe key, int32."""
     return torch.searchsorted(build_sorted, probe, out_int32=True)

@@ -50,15 +50,76 @@ def test_pass_kernels_equal_plain(dev, bins):
     assert after["partition_ranks"] == before["partition_ranks"] + 1
 
 
-@pytest.mark.parametrize("num_partitions", [7, 257, (1 << 18) + 1, (1 << 16) + 1])
-def test_partition_plan_kernel_arm_equals_sort_arm(dev, num_partitions):
+@pytest.mark.parametrize("n", [1, 100, 1_000_003, 1 << 20])
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("ranked", [False, True])
+def test_pass_scatter_kernel_equals_plain(dev, n, first, ranked):
+    """The pass's move against its plain version (two index_puts): a first
+    pass (no perm, the kernel writes each row's own index) and a later one;
+    one row, fewer than a block's, a count off the 4-row groups, and keys
+    off their 16-byte boundary (the unaligned instance); one launch a call.
+    Ranked: dest from ranking bits 8-15 of the keys with a tail class, the
+    digit the kernel is told (it stages each bin's rows); else a random
+    permutation, whose bins fill no run (it writes row by row)."""
+    rng = np.random.default_rng(n)
+    keys = _on(dev, rng.integers(-(1 << 31), (1 << 31) - 1, n + 1).astype(np.int32))
+    keys[::5] = 12345  # the tail key
+    perm = None if first else _on(dev, rng.permutation(n).astype(np.int32))
+    for k in (keys[:n], keys[1:]):
+        if ranked:
+            digit = dict(shift=8, bits=8, tail_key=12345)
+            pd = torch.where(k == 12345, 256, (k >> 8) & 255).contiguous()
+            dest = krp.partition_ranks(pd, 257)[0]
+        else:
+            digit = {}
+            dest = _on(dev, rng.permutation(n).astype(np.int32))
+        before = ops.launch_counts()["pass_scatter"]
+        got = krp.pass_scatter(dest, k, perm, **digit)
+        assert ops.launch_counts()["pass_scatter"] == before + 1
+        want = ref.pass_scatter(dest, k, perm)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32 and torch.equal(g, w)
+
+
+# (partitions, passes): one pass without and with the tail class, two
+# without and with it, three without (the served joins' 2^18 + 1) and with
+# it, and the zero-bit tail pass of two partitions
+PLAN_WIDTHS = [(7, 1), (257, 1), (4097, 2), ((1 << 16) + 1, 2), ((1 << 18) + 1, 3),
+               ((1 << 24) + 1, 3), (2, 1)]
+
+
+@pytest.mark.parametrize("num_partitions, passes", PLAN_WIDTHS)
+def test_partition_plan_kernel_arm_equals_sort_arm(dev, num_partitions, passes):
+    """perm, the carried column, offsets and sizes bit for bit; one
+    histogram, rank and scatter launch a pass."""
     rng = np.random.default_rng(num_partitions)
     d = _on(dev, rng.integers(0, num_partitions, 1_000_003).astype(np.int32))
+    d[::5] = num_partitions - 1  # a heavy top (sentinel) partition
     carry = _on(dev, rng.integers(-(1 << 40), 1 << 40, d.shape[0]))
+    ops.reset_launch_counts()
     a = ops.partition_plan(d, num_partitions, carry=(carry,), impl="cuda")
+    got = ops.launch_counts()
+    assert got["block_histograms"] == got["partition_ranks"] == got["pass_scatter"] == passes
     b = ops.partition_plan(d, num_partitions, carry=(carry,), impl="torch")
     for x, y in zip((a[0], a[1][0], a[2], a[3]), (b[0], b[1][0], b[2], b[3])):
         assert torch.equal(x, y)
+
+
+def test_partition_plan_kernel_arm_at_the_served_probe_shape(dev):
+    """A served probe side: 67,108,864 digits into 2^18 + 1 partitions, the
+    last 7,108,864 rows (the padding) in the sentinel partition; the kernel
+    arm's perm, carried column, offsets and sizes equal the sort arm's."""
+    n, pad, P = 1 << 26, 7_108_864, 1 << 18
+    rng = np.random.default_rng(26)
+    d = np.full(n, P, np.int32)
+    d[:n - pad] = rng.integers(0, P, n - pad)
+    d = _on(dev, d)
+    carry = torch.arange(n, dtype=torch.int32, device=dev).flip(0)
+    a = ops.partition_plan(d, P + 1, carry=(carry,), impl="cuda")
+    b = ops.partition_plan(d, P + 1, carry=(carry,), impl="torch")
+    for x, y in zip((a[0], a[1][0], a[2], a[3]), (b[0], b[1][0], b[2], b[3])):
+        assert torch.equal(x, y)
+    assert int(a[3][P]) == pad and int(a[2][P]) == n - pad
 
 
 def _probe_sides(dev, p_bits, n_r, n_s, seed, key_range=200_000):
@@ -885,7 +946,7 @@ def test_radix_sort_plan_on_card_equals_stable_sort(dev):
     ops.reset_launch_counts()
     sk, perm = krp.sort_plan_radix(k)
     got = ops.launch_counts()
-    assert got["block_histograms"] == got["partition_ranks"] == 4
+    assert got["block_histograms"] == got["partition_ranks"] == got["pass_scatter"] == 4
     tk, tperm = ops.sort_plan(k)
     assert torch.equal(sk, tk) and torch.equal(perm, tperm) and perm.dtype == torch.int32
 
@@ -1076,7 +1137,7 @@ def test_block_histograms_kernel_one_digit(dev):
 # every kernel launches on the card that holds its tensors
 # ---------------------------------------------------------------------------
 def test_kernels_launch_on_their_tensors_card(dev):
-    """Each of the eight kernels on tensors of cuda:1 while cuda:0 is the
+    """Each of the nine kernels on tensors of cuda:1 while cuda:0 is the
     current card, against its plain version on the same tensors; the
     current card is left as it was."""
     if torch.cuda.device_count() < 2:
@@ -1091,6 +1152,7 @@ def test_kernels_launch_on_their_tensors_card(dev):
     src = _on(other, rng.normal(size=5000).astype(np.float32))
     idx = _on(other, np.sort(rng.integers(-1, 5000, 20_000)).astype(np.int32))
     build = torch.sort(_on(other, rng.integers(0, 1 << 20, 50_000).astype(np.int32))).values
+    dest = _on(other, rng.permutation(digits.shape[0]).astype(np.int32))
     sides = (("probe", 0), ("build", 1))
     calls = {
         "block_histograms": (lambda: krp.block_histograms(digits, 256),
@@ -1111,6 +1173,8 @@ def test_kernels_launch_on_their_tensors_card(dev):
                         lambda: ref.lower_bound(build, sk)),
         "histogram": (lambda: khist.histogram(digits, 256),
                       lambda: ref.histogram(digits, 256)),
+        "pass_scatter": (lambda: krp.pass_scatter(dest, digits, dest),
+                         lambda: ref.pass_scatter(dest, digits, dest)),
     }
     assert sorted(calls) == sorted(ops.launch_counts())
     with torch.cuda.device(0):
@@ -1569,6 +1633,7 @@ def test_pipeline_on_card_equals_cpu_and_launches_its_kernels(dev):
     torch.testing.assert_close(card[3]["label_mean"][:n].cpu(), host[3]["label_mean"][:n],
                                rtol=1e-6, atol=0)
     assert card[5] == dict.fromkeys(card[5], 0) | {"block_histograms": 4, "partition_ranks": 4,
+                                                   "pass_scatter": 4,
                                                    "hash_probe": 2, "clustered_gather": 11}
     assert not any(host[5].values())
 
@@ -1612,7 +1677,7 @@ def test_declared_launches_equal_the_c_side_and_spills_are_declared(dev):
     """The launch-configuration lint on the card: at every registered shape
     the declared launch equals what each library's `<name>_launch_config`
     (its launch's own host helper) gives, and every compiled instance of the
-    eight kernels fits its block and spills no more than DECLARED_SPILLS
+    nine kernels fits its block and spills no more than DECLARED_SPILLS
     gives it (nothing, where it names no spill)."""
     from repro_torch.analysis import kernel_lint as kl
 
@@ -1642,3 +1707,7 @@ def test_launch_config_entries_agree_with_real_tensors(dev):
         h = kl.c_launch_config("histogram", args, dev.index or 0)
         mine = kl.declare("histogram", args, h["sms"])
         assert (mine.instance, mine.smem, mine.grid[0]) == (h["instance"], h["smem"], h["grid"])
+        args = {"n": view.shape[0], "dest_addr": d.data_ptr(), "dig_addr": view.data_ptr()}
+        c = kl.c_launch_config("pass_scatter", args, dev.index or 0)
+        mine = kl.declare("pass_scatter", args, c["sms"], lambda *_: c["per_sm"])
+        assert (mine.instance, mine.grid[0]) == (c["instance"], c["grid"])

@@ -41,7 +41,7 @@ from repro_torch.kernels import radix_partition as trp  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import segsum as tseg  # noqa: E402
 from test_torch_cuda import (GATHER_DTYPES, GATHER_EDGES, LB_EDGES,  # noqa: E402
-                             PROBE_AGG_EDGES, PROBE_CAPS, PROBE_EDGES, RANK_CASES,
+                             PLAN_WIDTHS, PROBE_AGG_EDGES, PROBE_CAPS, PROBE_EDGES, RANK_CASES,
                              _gather_edge, _gather_numpy, _lb_edge, _probe_agg_edge,
                              _probe_edge, _rank_case)
 
@@ -163,6 +163,94 @@ def test_partition_plan_matches_both_jax_arms(num_partitions, jax_pass_bits):
             assert perm.dtype == off.dtype == sz.dtype == torch.int32
             for a, b in ((jperm, perm), (jc, c), (joff, off), (jsz, sz)):
                 _eq(a, b)
+
+
+# rows: none, one, fewer than a tile, and a ragged count of tiles
+PLAN_ROWS = [0, 1, 700, 5003]
+
+
+def _counted_pass_scatter(monkeypatch):
+    calls = []
+
+    def counted(dest, digits, perm=None, *, shift, bits, tail_key):
+        calls.append((perm is None, shift))
+        return tref.pass_scatter(dest, digits, perm)
+
+    monkeypatch.setattr(trp, "pass_scatter", counted)
+    return calls
+
+
+@pytest.mark.parametrize("n", PLAN_ROWS)
+@pytest.mark.parametrize("num_partitions, passes", PLAN_WIDTHS)
+def test_lsd_composition_on_plain_arms_equals_stable_sort(monkeypatch, num_partitions, passes, n):
+    """The composition with the kernels' plain versions against one stable
+    sort (the torch arm): perm, carried, offsets and sizes, for one to three
+    passes with the tail class on and off; one scatter a pass, the first
+    with no permutation to move, each told its pass's digit."""
+    rng = np.random.default_rng(n + num_partitions)
+    d = rng.integers(0, num_partitions, n).astype(np.int32)
+    d[rng.random(n) < 0.2] = num_partitions - 1
+    c = rng.integers(-(1 << 40), 1 << 40, n)
+    calls = _counted_pass_scatter(monkeypatch)
+    got = trp.partition_plan(_t(d), num_partitions, carry=(_t(c),))
+    assert calls == [(i == 0, 8 * i) for i in range(passes)]
+    want = tops.partition_plan(_t(d), num_partitions, carry=(_t(c),), impl="torch")
+    for a, b in zip((got[0], got[1][0], got[2], got[3]), (want[0], want[1][0], want[2], want[3])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", PLAN_ROWS)
+def test_radix_sort_plan_on_plain_arms_equals_stable_sort(monkeypatch, n):
+    """Four 8-bit passes over the sign-flipped keys; the sorted keys come
+    out of the last pass's scatter, not out of a gather."""
+    k = np.random.default_rng(n).integers(-(1 << 31), (1 << 31) - 1, n).astype(np.int32)
+    k[::3] = -1
+    calls = _counted_pass_scatter(monkeypatch)
+    sk, perm = trp.sort_plan_radix(_t(k))
+    assert calls == [(i == 0, 8 * i) for i in range(4)]
+    ts, tperm = tops.sort_plan(_t(k))
+    assert torch.equal(sk, ts) and torch.equal(perm, tperm)
+
+
+@pytest.mark.parametrize("first", [True, False])
+def test_pass_scatter_plain_version(first):
+    rng = np.random.default_rng(int(first))
+    n = 1000
+    dest, perm = rng.permutation(n).astype(np.int32), rng.permutation(n).astype(np.int32)
+    keys = rng.integers(-(1 << 31), (1 << 31) - 1, n).astype(np.int32)
+    src = np.arange(n, dtype=np.int32) if first else perm
+    want_perm, want_keys = np.empty_like(src), np.empty_like(keys)
+    want_perm[dest], want_keys[dest] = src, keys
+    got = trp.pass_scatter(_t(dest), _t(keys), None if first else _t(perm))
+    _eq(want_perm, got[0])
+    _eq(want_keys, got[1])
+
+
+@pytest.mark.parametrize("num_partitions", [60, 257, (1 << 18) + 1])
+def test_partition_plan_gathers_nothing_through_its_permutation(num_partitions):
+    """Every pass moves its keys by the scatter that moves the permutation:
+    a plan makes one ATen gather (`aten.index`) per carried column and no
+    other, and the radix sort plan none."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    d = _t(np.random.default_rng(3).integers(0, num_partitions, 5003).astype(np.int32))
+    for carry in ((), (d.long(),)):
+        with Ops() as mode:
+            trp.partition_plan(d, num_partitions, carry=carry)
+        assert mode.names.count("aten.index") == len(carry), mode.names
+        assert "aten.index_put_" in mode.names
+    with Ops() as mode:
+        trp.sort_plan_radix(d)
+    assert "aten.index" not in mode.names
 
 
 def test_partition_plan_default_arm_is_device_resolved(monkeypatch):
