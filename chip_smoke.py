@@ -400,21 +400,18 @@ PIPE_LAUNCHES = {"block_histograms": 8, "partition_ranks": 8, "pass_scatter": 8,
 VIS_ARCH, VIS_LAYERS, VIS_PARAMS = "llama-3.2-vision-11b", 10, 3_231_797_252
 AUD_ARCH, AUD_PARAMS = "whisper-large-v3", 1_534_940_160
 FAMILY_REQUESTS = 8
-KERNEL_SOURCES = {
-    "block_histograms": ("src/repro_torch/csrc/block_histograms.cu",
-                         "src/repro/kernels/radix_partition.py:49"),
-    "partition_ranks": ("src/repro_torch/csrc/partition_ranks.cu",
-                        "src/repro/kernels/radix_partition.py:79"),
-    "hash_probe": ("src/repro_torch/csrc/hash_probe.cu", "src/repro/kernels/hash_probe.py:43"),
-    "clustered_gather": ("src/repro_torch/csrc/clustered_gather.cu",
-                         "src/repro/kernels/gather.py:40"),
-    "probe_agg": ("src/repro_torch/csrc/probe_agg.cu", "src/repro/kernels/hash_probe.py:132"),
-    "segsum_partials": ("src/repro_torch/csrc/segsum_partials.cu",
-                        "src/repro/kernels/segsum.py:43"),
-    "lower_bound": ("src/repro_torch/csrc/lower_bound.cu", "src/repro/kernels/merge_join.py:43"),
-    "histogram": ("src/repro_torch/csrc/histogram.cu", "src/repro/kernels/histogram.py:34"),
-    "pass_scatter": ("src/repro_torch/csrc/pass_scatter.cu",
-                     "none: the LSD passes' ATen index and index_put glue"),
+# the reference's code each kernel timed in 6. replaces (its source is
+# src/repro_torch/csrc/<name>.cu)
+KERNEL_REPLACES = {
+    "block_histograms": "src/repro/kernels/radix_partition.py:49",
+    "partition_ranks": "src/repro/kernels/radix_partition.py:79",
+    "hash_probe": "src/repro/kernels/hash_probe.py:43",
+    "clustered_gather": "src/repro/kernels/gather.py:40",
+    "probe_agg": "src/repro/kernels/hash_probe.py:132",
+    "segsum_partials": "src/repro/kernels/segsum.py:43",
+    "lower_bound": "src/repro/kernels/merge_join.py:43",
+    "histogram": "src/repro/kernels/histogram.py:34",
+    "pass_scatter": "none: the LSD passes' ATen index and index_put glue",
 }
 
 
@@ -1928,7 +1925,7 @@ def main() -> None:
     from repro_torch.core import primitives as prim
     from repro_torch.core.table import Table
     from repro_torch.data.relgen import _payload, generate_star, generate_tpc
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, common, ops, ref
     from repro_torch.kernels import gather as kgather
     from repro_torch.kernels import hash_probe as kprobe
     from repro_torch.kernels import histogram as khist
@@ -1959,7 +1956,7 @@ def main() -> None:
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
     _build.build_all()
-    log(f"build: {time.perf_counter() - t0:.3f} s for {len(_build.SOURCES)} kernels "
+    log(f"build: {time.perf_counter() - t0:.3f} s for {len(common.KERNELS)} kernels "
         f"({' '.join(_build.NVCC_FLAGS)}) into {_build.BUILD_DIR.relative_to(ROOT)}")
     clock.done("1 build")
 
@@ -2761,8 +2758,9 @@ def main() -> None:
         err = max(float((k.double() - p.double()).abs().max()) if k.numel() else 0.0
                   for k, p in zip(kernel_out, plain_out))
         bound_b, bound_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
-        row = {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
-               "replaces": KERNEL_SOURCES[name][1],
+        row = {"name": name, "route": "cuda",
+               "source": str((_build.CSRC / f"{name}.cu").relative_to(ROOT)),
+               "replaces": KERNEL_REPLACES[name],
                "launches": path_launches[name] if launches is None else launches,
                "max_abs_err": err, "ms": cuda_ms(torch, kernel_fn),
                "plain_ms": cuda_ms(torch, plain_fn, reps=plain_reps, warmup=1),

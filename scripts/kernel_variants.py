@@ -224,11 +224,7 @@ def main():
     def load(name):
         """The variant's library, with the argument and result types of its
         entry points set."""
-        lib = ctypes.CDLL(str(paths[name]))
-        for fn, argtypes in _build.SIGNATURES[VARIANTS[name][0]].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = _build.RESTYPES.get(fn, ctypes.c_int)
-        return lib
+        return _build.bind(ctypes.CDLL(str(paths[name])), VARIANTS[name][0])
 
     Rn, Sn, _ = generate_tpc("J2", scale=1, payload_bytes=8, seed=0)
     R = table_from_numpy({"k": Rn["k"], "r1": Rn["r1"]})

@@ -71,14 +71,7 @@ def main(argv=None) -> None:
             raise SystemExit(1)
     libs = {"change": {n: _build.load(n) for n in NAMES}, "parent": {}}
     for n in NAMES:
-        lib = ctypes.CDLL(str(out / f"{n}.so"))
-        for fn, argtypes in _build.SIGNATURES[n].items():
-            if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = _build.RESTYPES.get(fn, ctypes.c_int)
-        lib.kernel_error_string.argtypes = (ctypes.c_int,)
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        libs["parent"][n] = lib
+        libs["parent"][n] = _build.bind(ctypes.CDLL(str(out / f"{n}.so")), n)
 
     rng = np.random.default_rng(0)
     d = torch.from_numpy(rng.integers(0, 60, 32).astype(np.int32)).cuda()

@@ -6,11 +6,12 @@ Ported so far: the joins (the partitioned hash join, pk_fk and m:n; the
 sort-merge join; the non-partitioned hash join; GFTR and GFUR
 materialization; join sequences), the fused group-join, the five group-by
 strategies, the checked drivers on the escalation ladder, the join planner
-and the GFUR/GFTR memory model (`core`), with the nine hand-written CUDA
-kernels (`kernels`: eight stand for the reference's Pallas kernels, one
-moves the partition planner's passes); the
-cost-based query engine: logical plans, statistics, the optimizer and its
-physical plans, the executor and the memory budget (`engine`); the
+and the GFUR/GFTR memory model (`core`), with the hand-written CUDA
+kernels (`kernels`, each declared by its record beside its wrapper,
+`kernels.common.register`: they stand for the reference's Pallas kernels
+and move the partition planner's passes); the cost-based query engine:
+logical plans, statistics, the optimizer and its physical plans, the
+executor and the memory budget (`engine`); the
 escalation runtime and fault injection (`resilience`), the metrics
 registry, residuals and the calibration store (`obs`), the relational
 workload generator and the feature-join pipeline that feeds LM training

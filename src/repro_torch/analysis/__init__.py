@@ -4,8 +4,9 @@ port's counterpart of the JAX package's `analysis`.
 `dispatch_audit` watches one eager run (a `TorchDispatchMode`) and counts
 its plan-shaping ops, its kernel calls and its peak of live bytes;
 `contracts` holds each operator's priced budget and the typed
-`ContractViolation` hierarchy; `kernel_lint` checks the nine Hopper
-kernels' launches (fit, the determinism rule, scatter discipline).
+`ContractViolation` hierarchy; `kernel_lint` checks the launches of the
+Hopper kernels that `kernels.common.register` declares (fit, the
+determinism rule, scatter discipline).
 `python -m repro_torch.analysis` sweeps the operators, the kernels and the
 engine's plans and writes ANALYSIS.json; it exits non-zero on any
 violation."""

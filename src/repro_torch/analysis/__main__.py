@@ -9,12 +9,12 @@ Sections:
               m:n modes), all five group-by strategies, the group-join on
               the engine's arm, and the partition and sort planners;
   kernels   — the launch-configuration lint (`kernel_lint`): every instance
-              of the nine Hopper kernels at every registered shape against
-              the H100's limits, and the sources' atomics. With
-              `--device cpu` the declared launches and the source checks;
-              on the card also the C side's launch configurations and the
-              compiled instances' registers, spills and static shared
-              memory;
+              of each declared Hopper kernel (`kernels.common.register`)
+              at every registered shape against the H100's limits, and
+              the sources' atomics. With `--device cpu` the declared
+              launches and the source checks; on the card also the C side's
+              launch configurations and the compiled instances' registers,
+              spills and static shared memory;
   engine    — optimizer-chosen physical plans (join + group-by as chosen
               and with fusion forced off, a filtered top-k, Q18 over a J2
               extract with 8-byte payloads), audited node by node via

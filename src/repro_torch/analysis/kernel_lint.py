@@ -1,18 +1,20 @@
-"""Launch-configuration lint for the port's nine Hopper kernels: the port's
-counterpart of the JAX package's `analysis/kernel_lint.py`.
+"""Launch-configuration lint for the port's hand-written Hopper kernels (the
+records that `kernels.common.register` holds): the port's counterpart of
+the JAX package's `analysis/kernel_lint.py`.
 
 The reference judges each `pallas_call` from its traced jaxpr. Here every
 kernel is CUDA C++ whose host code (`csrc/<name>.cu`) decides its launch, so
 the lint holds three checks, the Hopper form of the reference's three:
 
-  * Fit (the reference's VMEM fit). Each kernel instance's launch is
-    declared here (`declare`) as a function of the call's shape, the card's
-    multiprocessors and `per_sm`, the blocks of the instance one of them
-    holds: threads a block, dynamic shared memory and grid, read off the
-    host code. `lint_launch` holds one declared launch against the H100's
-    limits (`LIMITS`): threads a block, shared memory a block (static plus
-    dynamic; past 48 KB only where the launch raises the kernel's limit) and
-    a multiprocessor, the grid's dimensions, an empty grid. On the card the
+  * Fit (the reference's VMEM fit). Each kernel's record, beside its
+    wrapper, declares its launch (`Kernel.declare`, called by `declare`) as
+    a function of the call's shape, the card's multiprocessors and `per_sm`,
+    the blocks of the instance one of them holds: the instance, threads a
+    block, dynamic shared memory and grid, read off the host code.
+    `lint_launch` holds one declared launch against the H100's limits
+    (`LIMITS`): threads a block, shared memory a block (static plus dynamic;
+    past 48 KB only where the launch raises the kernel's limit) and a
+    multiprocessor, the grid's dimensions, an empty grid. On the card the
     lint also reads the compiled kernels: each library's
     `<name>_launch_config` is the host helper its launch calls, and must
     equal the declaration at every registered shape; `<name>_func_attributes`
@@ -50,10 +52,11 @@ import math
 import re
 from pathlib import Path
 
+from ..kernels import _build
 from ..kernels import hash_probe as _kprobe
 from ..kernels import histogram as _histogram
 from ..kernels import radix_partition as _radix
-from ..kernels import segsum as _segsum
+from ..kernels.common import KERNELS, Launch, ceil_div
 from .contracts import FloatScatterViolation, GridAliasViolation, VmemBudgetViolation
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -75,37 +78,9 @@ LIMITS = {
 # H100 SXM's multiprocessors: the declarations' default card
 SMS = 132
 
-# The kernel instances each library's launch can pick, in the order of its
-# INSTANCES table (`<name>_instance_name(i)` on the card must agree).
-INSTANCES = {
-    "block_histograms": ("block_histograms<false>", "block_histograms<true>"),
-    "partition_ranks": ("partition_ranks",),
-    "hash_probe": ("hash_probe<32>", "hash_probe<256>"),
-    "clustered_gather": ("clustered_gather<4, false>", "clustered_gather<4, true>",
-                         "clustered_gather<8, false>", "clustered_gather<8, true>"),
-    "probe_agg": ("probe_agg<4, 256, 8>", "probe_agg<4, 1024, 1>", "probe_agg<8, 256, 6>",
-                  "probe_agg<8, 1024, 1>"),
-    "segsum_partials": ("segsum_partials<4>", "segsum_partials<8>"),
-    "lower_bound": tuple(f"lower_bound<{kb}, {per}>" for kb in (4, 8) for per in (8, 4, 2, 1)),
-    "histogram": ("histogram<false>", "histogram<true>"),
-    "pass_scatter": ("pass_scatter<false>", "pass_scatter<true>"),
-}
-KERNELS = tuple(INSTANCES)
-
-# Static shared memory of each instance, the sum of its `__shared__`
-# arrays; the card's `sharedSizeBytes` replaces it there.
-STATIC_SMEM = {
-    "clustered_gather<4, false>": 8 * 256 * 4, "clustered_gather<4, true>": 8 * 256 * 4,
-    "clustered_gather<8, false>": 8 * 256 * 8, "clustered_gather<8, true>": 8 * 256 * 8,
-    # red_min, red_max (WARPS keys each), bounds[3], tile_hi
-    **{f"lower_bound<{kb}, {per}>": 2 * 8 * kb + 4 * 4 for kb in (4, 8) for per in (8, 4, 2, 1)},
-    # s_before (2 keys), s_first, s_next, the STAGES slots' chunk, offset,
-    # count and flag, s_handed, s_answered, s_closed, the ROW_WARPS warps'
-    # heads and flags, s_edges (CHUNK / 32 + 1 words): 232 or 240 bytes,
-    # 240 for both key widths once the compiler aligns them
-    **{f"segsum_partials<{kb}>": 240 for kb in (4, 8)},
-}
-
+# each registered kernel's instances (`<name>_instance_name(i)` on the card
+# must agree)
+INSTANCES = {k: r.instances for k, r in KERNELS.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,20 +110,6 @@ DECLARED_SPILLS = (
 CONFIG = ("instance", "threads", "smem", "grid", "sms", "per_sm")
 ATTRIBUTES = ("registers", "spill_bytes", "static_smem", "max_threads_per_block",
               "max_dynamic_smem", "instances")
-
-
-@dataclasses.dataclass(frozen=True)
-class Launch:
-    """One launch as declared: the kernel instance a call picks, threads a
-    block, bytes of dynamic shared memory, the grid, and the dynamic
-    shared-memory limit the launch raises the instance's to first (0: it
-    keeps the 48 KB default)."""
-    kernel: str
-    instance: str
-    threads: int
-    smem: int
-    grid: tuple
-    opt_in: int = 0
 
 
 @dataclasses.dataclass
@@ -186,7 +147,7 @@ class KernelLintReport:
 
 
 # ---------------------------------------------------------------------------
-# fit: the declarations, read off each .cu's host code
+# fit: the declared launches against the card's limits
 # ---------------------------------------------------------------------------
 def occupancy(threads: int, smem: int, registers: int | None = None) -> int:
     """Blocks of a kernel one H100 multiprocessor holds at `threads` threads
@@ -203,139 +164,15 @@ def occupancy(threads: int, smem: int, registers: int | None = None) -> int:
     return max(0, min(by))
 
 
+def static_smem(instance: str) -> int:
+    """Bytes of the `__shared__` arrays of a kernel instance, as its record
+    declares them; the card's `sharedSizeBytes` replaces it there."""
+    return next((r.static_smem.get(instance, 0) for r in KERNELS.values()
+                 if instance in r.instances), 0)
+
+
 def _estimate_per_sm(instance: str, threads: int, smem: int) -> int:
-    return occupancy(threads, smem + STATIC_SMEM.get(instance, 0))
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def _r4(x: int) -> int:
-    return _cdiv(x, 4) * 4
-
-
-def _grid(want: int, cap: int) -> tuple:
-    return (min(want, cap), 1, 1)
-
-
-def _block_histograms(a, sms, per_sm):
-    # block_histograms.cu, config: 8 warps a block, a sub-histogram each;
-    # the occupancy asked at 32 KB, the limit raised to it
-    n, bins, tile = a["n"], a["num_bins"], a.get("tile", _radix.TILE)
-    inst = INSTANCES["block_histograms"][int(tile == 1024 and a.get("addr", 0) % 16 == 0)]
-    fill = sms * per_sm(inst, 256, 32 * 1024)
-    return Launch("block_histograms", inst, 256, 8 * bins * 4,
-                  _grid(_cdiv(_cdiv(n, tile), 8), fill), opt_in=32 * 1024)
-
-
-def _partition_ranks(a, sms, per_sm):
-    # partition_ranks.cu, config: 4 warps a block, each with two (base row,
-    # tile) buffers and three sets of peer words
-    n, bins, tile = a["n"], a["num_bins"], a.get("tile", _radix.TILE)
-    inst = INSTANCES["partition_ranks"][0]
-    smem = 4 * (5 * _r4(bins) + 2 * _r4(tile)) * 4
-    fill = sms * per_sm(inst, 128, smem)
-    return Launch("partition_ranks", inst, 128, smem, _grid(_cdiv(_cdiv(n, tile), 4), fill),
-                  opt_in=smem if smem > LIMITS["smem_default_per_block"] else 0)
-
-
-def _hash_probe(a, sms, per_sm):
-    # hash_probe.cu, group_config: a warp a partition (8 tables of 2^9
-    # entries) up to 256 build keys, else the block (one of 2^14)
-    parts, cap = a["num_parts"], a["cap"]
-    wide = cap > 256
-    groups, bits = (1, 14) if wide else (8, 9)
-    inst = INSTANCES["hash_probe"][int(wide)]
-    smem = groups * (2 << bits) * 4
-    fill = sms * per_sm(inst, 256, smem)
-    return Launch("hash_probe", inst, 256, smem, _grid(_cdiv(parts, groups), fill), opt_in=smem)
-
-
-def _clustered_gather(a, sms, per_sm):
-    # clustered_gather.cu, config: 256 threads, 8 outputs a lane a step;
-    # vector index loads where idx + head lies on a (4 P)-byte boundary
-    n, eb = a["n"], a["elem_bytes"]
-    head = min((16 - a.get("out_addr", 0) % 16) % 16 // eb, n)
-    vec = (a.get("idx_addr", 0) + 4 * head) % (4 * (16 // eb)) == 0
-    inst = INSTANCES["clustered_gather"][2 * (eb == 8) + int(vec)]
-    fill = sms * per_sm(inst, 256, 0)
-    need = max(_cdiv((n - head) // 256 * 32, 256), 1)
-    return Launch("clustered_gather", inst, 256, 0, _grid(need, fill))
-
-
-def _probe_agg(a, sms, per_sm):
-    # probe_agg.cu, config: a thread a row (whole warps), the tables and the
-    # double buffer of smem_bytes (kernels/hash_probe.py reckons the same)
-    cap_s, kb = a["cap_s"], a["key_bytes"]
-    inst = INSTANCES["probe_agg"][2 * (kb == 8) + int(cap_s > 256)]
-    threads = _cdiv(cap_s, 32) * 32
-    smem = _kprobe._probe_agg_smem(a["cap_r"], cap_s, kb, a["cb"], a["cp"], a["c"])
-    fill = sms * per_sm(inst, threads, smem)
-    return Launch("probe_agg", inst, threads, smem, _grid(a["num_blocks"], fill),
-                  opt_in=smem if smem > LIMITS["smem_default_per_block"] else 0)
-
-
-def _segsum_partials(a, sms, per_sm):
-    # segsum_partials.cu, config: 2 warps of row threads and the look-back
-    # warp; two buffers of 1,024 rows and 2 slots of staged partials, each
-    # padded one element every 128 bytes
-    n, tile, kb = a["n"], a.get("tile", _segsum.TILE), a["key_bytes"]
-    inst = INSTANCES["segsum_partials"][int(kb == 8)]
-    smem = 4 * (1024 + 1024 // (128 // kb)) * kb + 6 * (1024 + 32) * 4
-    fill = sms * per_sm(inst, 96, smem)
-    return Launch("segsum_partials", inst, 96, smem, _grid(_cdiv(n, 1024 // tile * tile), fill),
-                  opt_in=smem)
-
-
-def _lower_bound(a, sms, per_sm):
-    # lower_bound.cu, config: the widest tile (256 x PER keys) that leaves
-    # two tiles per SM; a 32 KB ring and two tiles of keys
-    n, kb = a["n_probe"], a["key_bytes"]
-    pers = (8, 4, 2, 1)
-    branch = next((i for i, per in enumerate(pers[:3]) if n >= 2 * sms * 256 * per), 3)
-    inst = INSTANCES["lower_bound"][4 * (kb == 8) + branch]
-    tile = 256 * pers[branch]
-    smem = 32 * 1024 + 2 * tile * kb
-    fill = sms * per_sm(inst, 256, smem)
-    return Launch("lower_bound", inst, 256, smem, _grid(_cdiv(n, tile), fill), opt_in=smem)
-
-
-def _histogram_decl(a, sms, per_sm):
-    # histogram.cu, config: the counts in shared memory up to SMEM_BINS,
-    # one 16-byte vector a thread, at most 8 blocks an SM (not occupancy)
-    n, bins = a["n"], a["num_bins"]
-    shared = bins <= _histogram.SMEM_BINS
-    inst = INSTANCES["histogram"][int(shared)]
-    head = min((16 - a.get("addr", 0) % 16) % 16 // 4, n)
-    want = _cdiv(max((n - head) // 4, 4), 256)
-    return Launch("histogram", inst, 256, 4 * bins if shared else 0, _grid(want, sms * 8))
-
-
-def _pass_scatter(a, sms, per_sm):
-    # pass_scatter.cu, config: 1,024 threads staging chunks of 8,192 rows
-    # (destinations, permutation entries, keys), 260 counts, least
-    # destinations and offsets, 32 warp sums and a flag; vector loads where
-    # dest, the keys and perm_in lie on 16-byte boundaries
-    n = a["n"]
-    vec = all(a.get(k, 0) % 16 == 0 for k in ("dest_addr", "dig_addr", "perm_addr"))
-    inst = INSTANCES["pass_scatter"][int(vec)]
-    smem = (3 * 8192 + 3 * 260 + 32 + 1) * 4
-    fill = sms * per_sm(inst, 1024, smem)
-    return Launch("pass_scatter", inst, 1024, smem, _grid(_cdiv(n, 8192), fill), opt_in=smem)
-
-
-_DECLARE = {"block_histograms": _block_histograms, "partition_ranks": _partition_ranks,
-            "hash_probe": _hash_probe, "clustered_gather": _clustered_gather,
-            "probe_agg": _probe_agg, "segsum_partials": _segsum_partials,
-            "lower_bound": _lower_bound, "histogram": _histogram_decl,
-            "pass_scatter": _pass_scatter}
-
-# the argument that counts the rows a wrapper launches for; at 0 it
-# launches nothing (and the gather at no source row writes zeros)
-_ROWS = {"block_histograms": "n", "partition_ranks": "n", "hash_probe": "n_probe",
-         "clustered_gather": "n", "probe_agg": "num_blocks", "segsum_partials": "n",
-         "lower_bound": "n_probe", "histogram": "n", "pass_scatter": "n"}
+    return occupancy(threads, smem + static_smem(instance))
 
 
 def declare(kernel: str, args: dict, sms: int = SMS, per_sm=_estimate_per_sm) -> Launch | None:
@@ -343,9 +180,10 @@ def declare(kernel: str, args: dict, sms: int = SMS, per_sm=_estimate_per_sm) ->
     multiprocessors; `per_sm(instance, threads, smem)` gives the blocks of
     the instance one multiprocessor holds (default: `occupancy` with no
     registers). None where the wrapper launches nothing."""
-    if args[_ROWS[kernel]] == 0 or args.get("n_src", 1) == 0:
+    record = KERNELS[kernel]
+    if args[record.rows] == 0:
         return None
-    return _DECLARE[kernel](args, sms, per_sm)
+    return record.declare(args, sms, per_sm)
 
 
 def lint_launch(launch: Launch, *, name: str | None = None, shape: str = "",
@@ -357,7 +195,7 @@ def lint_launch(launch: Launch, *, name: str | None = None, shape: str = "",
     `c_config`, their equality."""
     L = LIMITS
     tag = name or launch.instance
-    static = (attributes or {}).get("static_smem", STATIC_SMEM.get(launch.instance, 0))
+    static = (attributes or {}).get("static_smem", static_smem(launch.instance))
     v = []
     if not 1 <= launch.threads <= L["threads_per_block"]:
         v.append(VmemBudgetViolation(
@@ -420,10 +258,10 @@ PIPE_U, PIPE_I, PIPE_F = 4_194_304, 1_048_576, 4_096
 
 
 def _shapes():
-    s = {k: [] for k in KERNELS}
+    s = {}
 
     def add(kernel, label, **args):
-        s[kernel].append((label, args))
+        s.setdefault(kernel, []).append((label, args))
 
     for k in ("block_histograms", "partition_ranks"):
         add(k, "J2: S's first plan pass, 256 bins", n=J2_S, num_bins=256)
@@ -478,7 +316,7 @@ def _shapes():
     add("clustered_gather", "edge: no source row (zeros, no launch)", n=J2_S, n_src=0,
         elem_bytes=8)
 
-    j2_blocks = _cdiv(J2_S, 256) + J2_P
+    j2_blocks = ceil_div(J2_S, 256) + J2_P
     gj = dict(cap_r=256, cap_s=256, cb=1, cp=1, c=2)
     add("probe_agg", "J2: the group-join's padded layout, int32 group keys",
         num_blocks=j2_blocks, key_bytes=4, **gj)
@@ -540,60 +378,32 @@ SHAPES = _shapes()
 # ---------------------------------------------------------------------------
 # the card: the C side's configurations and the compiled instances
 # ---------------------------------------------------------------------------
-def _c_args(kernel: str, a: dict) -> tuple:
-    """`<kernel>_launch_config`'s leading arguments for the registered
-    shape `a` (`_build.LAUNCH_CONFIG_ARGS`); pointers carry only the
-    alignment the shape names."""
-    p = ctypes.c_void_p
-    return {
-        "block_histograms": lambda: (p(a.get("addr", 0)), a["n"], a["num_bins"],
-                                     a.get("tile", _radix.TILE)),
-        "partition_ranks": lambda: (a["n"], a["num_bins"], a.get("tile", _radix.TILE)),
-        "hash_probe": lambda: (a["num_parts"], a["cap"]),
-        "clustered_gather": lambda: (p(a.get("idx_addr", 0)), a["n"], a["elem_bytes"],
-                                     p(a.get("out_addr", 0))),
-        "probe_agg": lambda: (a["num_blocks"], a["cap_r"], a["cap_s"], a["cb"], a["cp"], a["c"],
-                              a["key_bytes"]),
-        "segsum_partials": lambda: (a["n"], a.get("tile", _segsum.TILE), a["key_bytes"]),
-        "lower_bound": lambda: (a["n_probe"], a["key_bytes"]),
-        "histogram": lambda: (p(a.get("addr", 0)), a["n"], a["num_bins"]),
-        "pass_scatter": lambda: (p(a.get("dest_addr", 0)), p(a.get("dig_addr", 0)),
-                                 p(a.get("perm_addr", 0)), a["n"]),
-    }[kernel]()
-
-
 def c_launch_config(kernel: str, args: dict, device: int = 0) -> dict:
     """What the launch of `kernel` with `args` would use, from the C side
     (its launch's own host helper); raises KernelError where it refuses."""
-    from ..kernels import _build
-
-    lib = _build.load(kernel)
     out = (ctypes.c_longlong * len(CONFIG))()
-    err = getattr(lib, f"{kernel}_launch_config")(*_c_args(kernel, args), device, out)
-    _build.check(lib, f"{kernel}_launch_config", err)
+    _build.checked(kernel, f"{kernel}_launch_config", *KERNELS[kernel].config(args),
+                   ctypes.c_int(device), out)
     c = dict(zip(CONFIG, out))
-    c["instance"] = INSTANCES[kernel][c["instance"]]
+    c["instance"] = KERNELS[kernel].instances[c["instance"]]
     return c
 
 
 def func_attributes(kernel: str, device: int = 0) -> dict:
     """{instance: attributes} of every compiled instance of `kernel`
     (cudaFuncGetAttributes); raises where the library's table differs from
-    `INSTANCES`."""
-    from ..kernels import _build
-
-    lib = _build.load(kernel)
+    record's instances."""
+    instances = KERNELS[kernel].instances
     attrs = {}
-    for i, inst in enumerate(INSTANCES[kernel]):
+    for i, inst in enumerate(instances):
         out = (ctypes.c_longlong * len(ATTRIBUTES))()
-        err = getattr(lib, f"{kernel}_func_attributes")(i, device, out)
-        _build.check(lib, f"{kernel}_func_attributes", err)
-        got = getattr(lib, f"{kernel}_instance_name")(i).decode()
+        _build.checked(kernel, f"{kernel}_func_attributes", i, device, out)
+        got = _build.call(kernel, f"{kernel}_instance_name", i).decode()
         a = dict(zip(ATTRIBUTES, out))
-        if got != inst or a["instances"] != len(INSTANCES[kernel]):
+        if got != inst or a["instances"] != len(instances):
             raise VmemBudgetViolation(
                 f"{kernel}: the library's instance {i} is {got!r} of {a['instances']}; the "
-                f"lint declares {inst!r} of {len(INSTANCES[kernel])}")
+                f"lint declares {inst!r} of {len(instances)}")
         attrs[inst] = a
     return attrs
 
@@ -846,7 +656,7 @@ def production_kernel_specs():
     and the edges (0 and 1 rows, each side of the 48 KB opt-in and of
     `histogram`'s SMEM_BINS, the largest fan-out a plan asks, every
     instance a launch can pick)."""
-    return [(k, label, args) for k in KERNELS for label, args in SHAPES[k]]
+    return [(k, label, args) for k, shapes in SHAPES.items() for label, args in shapes]
 
 
 def lint_production_kernels(device=None) -> list[KernelLintReport]:
@@ -867,17 +677,15 @@ def lint_production_kernels(device=None) -> list[KernelLintReport]:
     reports = []
     for kernel, label, args in production_kernel_specs():
         c_cfg = None
-        sms, per_sm = SMS, _estimate_per_sm
-        if on_card and args[_ROWS[kernel]] > 0 and args.get("n_src", 1) > 0:
-            c_cfg = c_launch_config(kernel, args, ordinal)
-            sms = c_cfg["sms"]
-            per_sm = (lambda c: lambda *_: c["per_sm"])(c_cfg)
-        launch = declare(kernel, args, sms, per_sm)
-        name = f"{kernel} @ {label}"
+        launch = declare(kernel, args)
         if launch is None:
-            reports.append(KernelLintReport(name=name, grid=(0, 1, 1), kernel=kernel,
-                                            instance="none", shape=label, launched=False))
+            reports.append(KernelLintReport(name=f"{kernel} @ {label}", grid=(0, 1, 1),
+                                            kernel=kernel, instance="none", shape=label,
+                                            launched=False))
             continue
+        if on_card:
+            c_cfg = c_launch_config(kernel, args, ordinal)
+            launch = declare(kernel, args, c_cfg["sms"], lambda *_: c_cfg["per_sm"])
         reports.append(lint_launch(launch, name=f"{launch.instance} @ {label}", shape=label,
                                    attributes=attrs.get(launch.instance), c_config=c_cfg))
     for path in source_files():
@@ -900,5 +708,5 @@ def instance_table(reports: list[KernelLintReport]) -> list[dict]:
                                 "registers": r.registers, "spill_bytes": r.spill_bytes,
                                 "declared_spill_bytes": r.declared_spill_bytes,
                                 "static_smem": r.static_smem}
-    order = [i for k in KERNELS for i in INSTANCES[k]]
+    order = [i for k in SHAPES for i in KERNELS[k].instances]
     return [rows[i] for i in order if i in rows]

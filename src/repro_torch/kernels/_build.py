@@ -1,16 +1,18 @@
 """Build and load the hand-written CUDA kernels.
 
-Each `csrc/<name>.cu` has a plain C interface and is compiled on its own by
-nvcc for Hopper (`sm_90a`) into `build/torch_kernels/<name>-<hash>.so` at the
-root of the checkout, then loaded with ctypes. The hash covers the source,
+Each registered kernel's `csrc/<name>.cu` (`common.Kernel`) has a plain C
+interface and is compiled on its own by nvcc for Hopper (`sm_90a`) into
+`build/torch_kernels/<name>-<hash>.so` at the root of the checkout, then
+loaded with ctypes, its entry points typed from the record (`bind`). The hash covers the source,
 the shared header and the flags, so a library is rebuilt only when one of
 them changes. `build_all` starts one nvcc per source, all at once.
 
 Every C entry point launches on the card and stream it is given (the card
 that holds its tensors and PyTorch's current stream there, `launch_on`) and
-returns `cudaGetLastError()`; `check` raises when that is not 0. A kernel
-that cannot be built (no toolkit, nvcc fails) or launched raises
-`KernelError`, which the engine never answers by re-planning around it.
+returns `cudaGetLastError()`; `checked` raises when that is not 0, and
+`launch` counts the launch where it is 0. A kernel that cannot be built (no
+toolkit, nvcc fails) or launched raises `KernelError`, which the engine
+never answers by re-planning around it.
 """
 from __future__ import annotations
 
@@ -21,57 +23,14 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from .common import KERNELS, LAUNCHES
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("block_histograms", "partition_ranks", "hash_probe", "clustered_gather", "probe_agg",
-           "segsum_partials", "lower_bound", "histogram", "pass_scatter")
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
-# argtypes of each C entry point, by library; each ends with the stream and
-# the card (`launch_on`)
-SIGNATURES = {
-    "block_histograms": {"block_histograms": (_P, _L, _I, _I, _P, _P, _I)},
-    "partition_ranks": {"partition_ranks": (_P, _P, _L, _I, _I, _P, _P, _I)},
-    "hash_probe": {"hash_probe": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _P, _P, _P, _I)},
-    "clustered_gather": {"clustered_gather": (_P, _P, _L, _L, _I, _P, _P, _I)},
-    "probe_agg": {"probe_agg": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
-                                _P, _P, _P, _P, _I)},
-    "segsum_partials": {"segsum_partials": (_P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _I),
-                        "segsum_partials_state_words": (_L, _I)},
-    "lower_bound": {"lower_bound": (_P, _I, _P, _L, _I, _P, _P, _I)},
-    "histogram": {"histogram": (_P, _L, _I, _P, _P, _I)},
-    "pass_scatter": {"pass_scatter": (_P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _I)},
-}
-
-# argtypes of each library's `<name>_launch_config`: the launch's own
-# arguments that decide its configuration (pointers only for their
-# alignment), then the card and room for six int64s (`kernel_lint.CONFIG`)
-LAUNCH_CONFIG_ARGS = {
-    "block_histograms": (_P, _L, _I, _I),
-    "partition_ranks": (_L, _I, _I),
-    "hash_probe": (_I, _I),
-    "clustered_gather": (_P, _L, _I, _P),
-    "probe_agg": (_L, _I, _I, _I, _I, _I, _I),
-    "segsum_partials": (_L, _I, _I),
-    "lower_bound": (_L, _I),
-    "histogram": (_P, _L, _I),
-    "pass_scatter": (_P, _P, _P, _L),
-}
-for _name, _args in LAUNCH_CONFIG_ARGS.items():
-    SIGNATURES[_name] |= {
-        f"{_name}_launch_config": (*_args, _I, _P),
-        # instance, card, room for six int64s (`kernel_lint.ATTRIBUTES`)
-        f"{_name}_func_attributes": (_I, _I, _P),
-        f"{_name}_instance_name": (_I,),
-    }
-
-# entry points that return something other than an error code
-RESTYPES = {"segsum_partials_state_words": ctypes.c_longlong,
-            **{f"{n}_instance_name": ctypes.c_char_p for n in LAUNCH_CONFIG_ARGS}}
+# the C types of the entry points' arguments (`Kernel.entries`)
+PTR, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -121,25 +80,60 @@ def _finish(name: str, job) -> None:
     os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
 
 
-def build_all(names=SOURCES) -> None:
+def build_all(names=KERNELS) -> None:
     """Compile every missing library, one nvcc per source in parallel."""
     jobs = {n: _start(n) for n in names}
     for n, job in jobs.items():
         _finish(n, job)
 
 
+def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Set the argument and result types of `name`'s entry points in `lib`
+    (also a library built from another commit's source), from its record;
+    an entry point the library lacks is left out. `<name>_launch_config`'s
+    arguments carry their own types (`Kernel.config`)."""
+    k = KERNELS[name]
+    sigs = {fn: (args, k.restypes.get(fn, ctypes.c_int)) for fn, args in k.entries.items()}
+    # instance, card, room for six int64s (`kernel_lint.ATTRIBUTES`)
+    sigs[f"{name}_func_attributes"] = ((I32, I32, PTR), ctypes.c_int)
+    sigs[f"{name}_instance_name"] = ((I32,), ctypes.c_char_p)
+    sigs["kernel_error_string"] = ((I32,), ctypes.c_char_p)
+    for fn, (argtypes, restype) in sigs.items():
+        f = getattr(lib, fn, None)
+        if f is not None:
+            f.argtypes, f.restype = argtypes, restype
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         _finish(name, _start(name))
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
-        lib.kernel_error_string.argtypes = (ctypes.c_int,)
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+        lib = _libs[name] = bind(ctypes.CDLL(str(_lib_path(name))), name)
     return lib
+
+
+def call(kernel: str, entry: str, *args):
+    """What one of `kernel`'s C entry points returns, its library built and
+    loaded first."""
+    return getattr(load(kernel), entry)(*args)
+
+
+def checked(kernel: str, entry: str, *args) -> None:
+    """Call an entry point that returns a CUDA error code; KernelError naming
+    the kernel where it is not 0."""
+    err = call(kernel, entry, *args)
+    if err != 0:
+        msg = load(kernel).kernel_error_string(err).decode()
+        raise KernelError(f"CUDA kernel {kernel}: {entry} failed: error {err} ({msg})")
+
+
+def launch(kernel: str, entry: str, *args, on) -> None:
+    """Launch `kernel` by its C entry point `entry` with `args`, on the card
+    that holds the tensor `on` and PyTorch's current stream there; one
+    launch counted in `LAUNCHES` once the entry point returns no error."""
+    checked(kernel, entry, *args, *launch_on(on))
+    LAUNCHES[kernel] += 1
 
 
 def launch_on(t) -> tuple[int, int]:
@@ -152,9 +146,3 @@ def launch_on(t) -> tuple[int, int]:
 
     device = t.get_device()
     return torch._C._cuda_getCurrentRawStream(device), device
-
-
-def check(lib: ctypes.CDLL, name: str, err: int) -> None:
-    if err != 0:
-        msg = lib.kernel_error_string(err).decode()
-        raise KernelError(f"CUDA kernel {name} failed to launch: error {err} ({msg})")

@@ -12,7 +12,31 @@ from __future__ import annotations
 import torch
 
 from . import _build, ref
-from .common import LAUNCHES
+from ._build import I32, I64, PTR
+from .common import Launch, ceil_div, register
+
+
+@register("clustered_gather", rows="n",
+          entries={"clustered_gather": (PTR, PTR, I64, I64, I32, PTR, PTR, I32)},
+          config=lambda a: (PTR(a.get("idx_addr", 0)), I64(a["n"]), I32(a["elem_bytes"]),
+                            PTR(a.get("out_addr", 0))),
+          instances=("clustered_gather<4, false>", "clustered_gather<4, true>",
+                     "clustered_gather<8, false>", "clustered_gather<8, true>"),
+          static_smem={f"clustered_gather<{eb}, {v}>": 8 * 256 * eb
+                       for eb in (4, 8) for v in ("false", "true")})
+def CLUSTERED_GATHER(a, sms, per_sm):
+    # clustered_gather.cu, config: 256 threads, 8 outputs a lane a step;
+    # vector index loads where idx + head lies on a (4 P)-byte boundary. No
+    # source row: the wrapper writes zeros and launches nothing.
+    if a["n_src"] == 0:
+        return None
+    n, eb = a["n"], a["elem_bytes"]
+    head = min((16 - a.get("out_addr", 0) % 16) % 16 // eb, n)
+    vec = (a.get("idx_addr", 0) + 4 * head) % (4 * (16 // eb)) == 0
+    inst = CLUSTERED_GATHER.instances[2 * (eb == 8) + int(vec)]
+    fill = sms * per_sm(inst, 256, 0)
+    need = max(ceil_div((n - head) // 256 * 32, 256), 1)
+    return Launch("clustered_gather", inst, 256, 0, (min(need, fill), 1, 1))
 
 
 def clustered_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -32,10 +56,6 @@ def clustered_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return out
     if src.shape[0] == 0:  # no row to read: every index is out of range
         return out.zero_()
-    lib = _build.load("clustered_gather")
-    err = lib.clustered_gather(src.data_ptr(), idx.data_ptr(), src.shape[0], idx.shape[0],
-                               src.element_size(), out.data_ptr(),
-                               *_build.launch_on(src))
-    _build.check(lib, "clustered_gather", err)
-    LAUNCHES["clustered_gather"] += 1
+    _build.launch("clustered_gather", "clustered_gather", src.data_ptr(), idx.data_ptr(),
+                  src.shape[0], idx.shape[0], src.element_size(), out.data_ptr(), on=src)
     return out

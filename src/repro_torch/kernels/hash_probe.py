@@ -16,10 +16,29 @@ from __future__ import annotations
 import torch
 
 from . import _build, ref
-from .common import KEY_SENTINEL, LAUNCHES, SMEM_PER_BLOCK, ceil_div
+from ._build import I32, I64, PTR
+from .common import (KEY_SENTINEL, SMEM_DEFAULT_PER_BLOCK, SMEM_PER_BLOCK, Kernel, Launch,
+                     ceil_div, register)
 
 # the widest build block the probe kernel's table takes (csrc/hash_probe.cu)
 MAX_BUILD_BLOCK = 12288
+
+
+@register("hash_probe", rows="n_probe",
+          entries={"hash_probe": (PTR, PTR, PTR, PTR, PTR, PTR, I32, I64, I32, PTR, PTR, PTR, I32)},
+          config=lambda a: (I32(a["num_parts"]), I32(a["cap"])),
+          instances=("hash_probe<32>", "hash_probe<256>"))
+def HASH_PROBE(a, sms, per_sm):
+    # hash_probe.cu, group_config: a warp a partition (8 tables of 2^9
+    # entries) up to 256 build keys, else the block (one of 2^14)
+    parts, cap = a["num_parts"], a["cap"]
+    wide = cap > 256
+    groups, bits = (1, 14) if wide else (8, 9)
+    inst = HASH_PROBE.instances[int(wide)]
+    smem = groups * (2 << bits) * 4
+    fill = sms * per_sm(inst, 256, smem)
+    return Launch("hash_probe", inst, 256, smem, (min(ceil_div(parts, groups), fill), 1, 1),
+                  opt_in=smem)
 
 
 def hash_probe(build_keys: torch.Tensor, off_r: torch.Tensor, sz_r: torch.Tensor,
@@ -55,13 +74,10 @@ def hash_probe(build_keys: torch.Tensor, off_r: torch.Tensor, sz_r: torch.Tensor
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return vid, hit
-    lib = _build.load("hash_probe")
-    err = lib.hash_probe(build_keys.data_ptr(), off_r.data_ptr(), sz_r.data_ptr(),
-                         probe_keys.data_ptr(), probe_off.data_ptr(), probe_sz.data_ptr(), P, n,
-                         build_block, vid.data_ptr(), hit.data_ptr(),
-                         *_build.launch_on(probe_keys))
-    _build.check(lib, "hash_probe", err)
-    LAUNCHES["hash_probe"] += 1
+    _build.launch("hash_probe", "hash_probe", build_keys.data_ptr(), off_r.data_ptr(),
+                  sz_r.data_ptr(), probe_keys.data_ptr(), probe_off.data_ptr(),
+                  probe_sz.data_ptr(), P, n, build_block, vid.data_ptr(), hit.data_ptr(),
+                  on=probe_keys)
     return vid, hit
 
 
@@ -85,6 +101,25 @@ def _probe_agg_smem(cap_r: int, cap_s: int, key_bytes: int, cb: int, cp: int, c:
                    + c * cap_s + cap_s)
     half = words(cp * cap_s) + words(cap_r) + words(cb * cap_r)
     return 4 * (tables + 2 * half)
+
+
+@register("probe_agg", rows="num_blocks",
+          entries={"probe_agg": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, I64, I32, I32, I32, I32, I32, I32,
+                                 I32, PTR, PTR, PTR, PTR, I32)},
+          config=lambda a: (I64(a["num_blocks"]), I32(a["cap_r"]), I32(a["cap_s"]), I32(a["cb"]),
+                            I32(a["cp"]), I32(a["c"]), I32(a["key_bytes"])),
+          instances=("probe_agg<4, 256, 8>", "probe_agg<4, 1024, 1>", "probe_agg<8, 256, 6>",
+                     "probe_agg<8, 1024, 1>"))
+def PROBE_AGG(a, sms, per_sm):
+    # probe_agg.cu, config: a thread a row (whole warps), the tables and the
+    # double buffer of smem_bytes
+    cap_s, kb = a["cap_s"], a["key_bytes"]
+    inst = PROBE_AGG.instances[2 * (kb == 8) + int(cap_s > 256)]
+    threads = ceil_div(cap_s, 32) * 32
+    smem = _probe_agg_smem(a["cap_r"], cap_s, kb, a["cb"], a["cp"], a["c"])
+    fill = sms * per_sm(inst, threads, smem)
+    return Launch("probe_agg", inst, threads, smem, (min(a["num_blocks"], fill), 1, 1),
+                  opt_in=smem if smem > SMEM_DEFAULT_PER_BLOCK else 0)
 
 
 def probe_agg(bkeys: torch.Tensor, bvals: torch.Tensor, probe_blocks: torch.Tensor,
@@ -143,14 +178,10 @@ def probe_agg(bkeys: torch.Tensor, bvals: torch.Tensor, probe_blocks: torch.Tens
     if B == 0 or cap_s == 0:
         return pk, ps, pc
     col_src = torch.tensor(src, dtype=torch.int32).to(dev)
-    lib = _build.load("probe_agg")
-    err = lib.probe_agg(bkeys.data_ptr(), bvals.data_ptr(), probe_blocks.data_ptr(),
-                        gk_blocks.data_ptr(), pv_blocks.data_ptr(), block_part.data_ptr(),
-                        col_src.data_ptr(), B, P, cap_r, cap_s, Cb, Cp, C,
-                        gk_blocks.element_size(), pk.data_ptr(), ps.data_ptr(), pc.data_ptr(),
-                        *_build.launch_on(pk))
-    _build.check(lib, "probe_agg", err)
-    LAUNCHES["probe_agg"] += 1
+    _build.launch("probe_agg", "probe_agg", bkeys.data_ptr(), bvals.data_ptr(),
+                  probe_blocks.data_ptr(), gk_blocks.data_ptr(), pv_blocks.data_ptr(),
+                  block_part.data_ptr(), col_src.data_ptr(), B, P, cap_r, cap_s, Cb, Cp, C,
+                  gk_blocks.element_size(), pk.data_ptr(), ps.data_ptr(), pc.data_ptr(), on=pk)
     return pk, ps, pc
 
 

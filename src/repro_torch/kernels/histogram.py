@@ -10,11 +10,28 @@ from __future__ import annotations
 import torch
 
 from . import _build, ref
-from .common import LAUNCHES
+from ._build import I32, I64, PTR
+from .common import Launch, ceil_div, register
 
 # bins the kernel counts in shared memory (48 KB of int32); more go straight
 # to device memory
 SMEM_BINS = 12288
+
+
+@register("histogram", rows="n",
+          entries={"histogram": (PTR, I64, I32, PTR, PTR, I32)},
+          config=lambda a: (PTR(a.get("addr", 0)), I64(a["n"]), I32(a["num_bins"])),
+          instances=("histogram<false>", "histogram<true>"))
+def HISTOGRAM(a, sms, per_sm):
+    # histogram.cu, config: the counts in shared memory up to SMEM_BINS,
+    # one 16-byte vector a thread, at most 8 blocks an SM (not occupancy)
+    n, bins = a["n"], a["num_bins"]
+    shared = bins <= SMEM_BINS
+    inst = HISTOGRAM.instances[int(shared)]
+    head = min((16 - a.get("addr", 0) % 16) % 16 // 4, n)
+    want = ceil_div(max((n - head) // 4, 4), 256)
+    return Launch("histogram", inst, 256, 4 * bins if shared else 0,
+                  (min(want, sms * 8), 1, 1))
 
 
 def histogram(digits: torch.Tensor, num_bins: int) -> torch.Tensor:
@@ -29,9 +46,6 @@ def histogram(digits: torch.Tensor, num_bins: int) -> torch.Tensor:
     out = torch.zeros(num_bins, dtype=torch.int32, device=digits.device)
     if digits.shape[0] == 0:
         return out
-    lib = _build.load("histogram")
-    err = lib.histogram(digits.data_ptr(), digits.shape[0], num_bins, out.data_ptr(),
-                        *_build.launch_on(digits))
-    _build.check(lib, "histogram", err)
-    LAUNCHES["histogram"] += 1
+    _build.launch("histogram", "histogram", digits.data_ptr(), digits.shape[0], num_bins,
+                  out.data_ptr(), on=digits)
     return out

@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from . import _build, ref
-from .common import LAUNCHES
+from ._build import I32, I64, PTR
+from .common import Launch, ceil_div, register
 
 # the kernel's ring of build keys in shared memory (32 KB: 8192 int32 or 4096
 # int64 keys; a tile whose range is wider stages a sampled index of it, of at
@@ -21,6 +22,27 @@ RING_BYTES = 32 * 1024
 SAMPLE = 512
 TILE_KEYS = (256, 2048)
 _KEY_TYPES = (torch.int32, torch.int64)
+_PERS = (8, 4, 2, 1)
+
+
+@register("lower_bound", rows="n_probe",
+          entries={"lower_bound": (PTR, I32, PTR, I64, I32, PTR, PTR, I32)},
+          config=lambda a: (I64(a["n_probe"]), I32(a["key_bytes"])),
+          instances=tuple(f"lower_bound<{kb}, {per}>" for kb in (4, 8) for per in _PERS),
+          # red_min, red_max (WARPS keys each), bounds[3], tile_hi
+          static_smem={f"lower_bound<{kb}, {per}>": 2 * 8 * kb + 4 * 4
+                       for kb in (4, 8) for per in _PERS})
+def LOWER_BOUND(a, sms, per_sm):
+    # lower_bound.cu, config: the widest tile (256 x PER keys) that leaves
+    # two tiles per SM; a 32 KB ring and two tiles of keys
+    n, kb = a["n_probe"], a["key_bytes"]
+    branch = next((i for i, per in enumerate(_PERS[:3]) if n >= 2 * sms * 256 * per), 3)
+    inst = LOWER_BOUND.instances[4 * (kb == 8) + branch]
+    tile = 256 * _PERS[branch]
+    smem = RING_BYTES + 2 * tile * kb
+    fill = sms * per_sm(inst, 256, smem)
+    return Launch("lower_bound", inst, 256, smem, (min(ceil_div(n, tile), fill), 1, 1),
+                  opt_in=smem)
 
 
 def lower_bound(build_sorted: torch.Tensor, probe: torch.Tensor) -> torch.Tensor:
@@ -42,9 +64,6 @@ def lower_bound(build_sorted: torch.Tensor, probe: torch.Tensor) -> torch.Tensor
     out = p.new_empty(p.shape[0], dtype=torch.int32)
     if p.shape[0] == 0:
         return out
-    lib = _build.load("lower_bound")
-    err = lib.lower_bound(b.data_ptr(), n_b, p.data_ptr(), p.shape[0], p.element_size(),
-                          out.data_ptr(), *_build.launch_on(p))
-    _build.check(lib, "lower_bound", err)
-    LAUNCHES["lower_bound"] += 1
+    _build.launch("lower_bound", "lower_bound", b.data_ptr(), n_b, p.data_ptr(), p.shape[0],
+                  p.element_size(), out.data_ptr(), on=p)
     return out

@@ -26,7 +26,8 @@ from __future__ import annotations
 import torch
 
 from . import _build, ref
-from .common import LAUNCHES, SMEM_PER_BLOCK, ceil_div
+from ._build import I32, I64, PTR
+from .common import SMEM_DEFAULT_PER_BLOCK, SMEM_PER_BLOCK, Launch, ceil_div, register
 
 # digits per tile of the histogram and rank kernels (the TPU kernel's
 # 8 x 128 block)
@@ -52,6 +53,21 @@ def _check_digits(digits: torch.Tensor, num_bins: int) -> None:
         raise ValueError(f"num_bins must be in [1, {MAX_BINS}], got {num_bins}")
 
 
+@register("block_histograms", rows="n",
+          entries={"block_histograms": (PTR, I64, I32, I32, PTR, PTR, I32)},
+          config=lambda a: (PTR(a.get("addr", 0)), I64(a["n"]), I32(a["num_bins"]),
+                            I32(a.get("tile", TILE))),
+          instances=("block_histograms<false>", "block_histograms<true>"))
+def BLOCK_HISTOGRAMS(a, sms, per_sm):
+    # block_histograms.cu, config: 8 warps a block, a sub-histogram each;
+    # the occupancy asked at 32 KB, the limit raised to it
+    n, bins, tile = a["n"], a["num_bins"], a.get("tile", TILE)
+    inst = BLOCK_HISTOGRAMS.instances[int(tile == 1024 and a.get("addr", 0) % 16 == 0)]
+    fill = sms * per_sm(inst, 256, 32 * 1024)
+    return Launch("block_histograms", inst, 256, 8 * bins * 4,
+                  (min(ceil_div(ceil_div(n, tile), 8), fill), 1, 1), opt_in=32 * 1024)
+
+
 def block_histograms(digits: torch.Tensor, num_bins: int, *, tile: int = TILE) -> torch.Tensor:
     """(ceil(n / tile), num_bins) int32 per-tile histograms; pad digits
     (negative) are not counted."""
@@ -62,11 +78,8 @@ def block_histograms(digits: torch.Tensor, num_bins: int, *, tile: int = TILE) -
     out = torch.empty((ceil_div(n, tile), num_bins), dtype=torch.int32, device=digits.device)
     if n == 0:
         return out
-    lib = _build.load("block_histograms")
-    err = lib.block_histograms(digits.data_ptr(), n, num_bins, tile, out.data_ptr(),
-                               *_build.launch_on(digits))
-    _build.check(lib, "block_histograms", err)
-    LAUNCHES["block_histograms"] += 1
+    _build.launch("block_histograms", "block_histograms", digits.data_ptr(), n, num_bins, tile,
+                  out.data_ptr(), on=digits)
     return out
 
 
@@ -85,6 +98,22 @@ def tile_base(hist: torch.Tensor):
     return excl.t().contiguous(), offsets, sizes
 
 
+@register("partition_ranks", rows="n",
+          entries={"partition_ranks": (PTR, PTR, I64, I32, I32, PTR, PTR, I32)},
+          config=lambda a: (I64(a["n"]), I32(a["num_bins"]), I32(a.get("tile", TILE))),
+          instances=("partition_ranks",))
+def PARTITION_RANKS(a, sms, per_sm):
+    # partition_ranks.cu, config: 4 warps a block, each with two (base row,
+    # tile) buffers and three sets of peer words
+    n, bins, tile = a["n"], a["num_bins"], a.get("tile", TILE)
+    inst = PARTITION_RANKS.instances[0]
+    smem = _rank_smem(bins, tile)
+    fill = sms * per_sm(inst, 32 * _RANK_WARPS, smem)
+    return Launch("partition_ranks", inst, 32 * _RANK_WARPS, smem,
+                  (min(ceil_div(ceil_div(n, tile), _RANK_WARPS), fill), 1, 1),
+                  opt_in=smem if smem > SMEM_DEFAULT_PER_BLOCK else 0)
+
+
 def rank_with_base(digits: torch.Tensor, base: torch.Tensor, num_bins: int, *,
                    tile: int = TILE) -> torch.Tensor:
     """Launch the rank kernel: dest[i] = base[tile(i), d] + stable rank of i
@@ -101,12 +130,8 @@ def rank_with_base(digits: torch.Tensor, base: torch.Tensor, num_bins: int, *,
     dest = torch.empty(n, dtype=torch.int32, device=digits.device)
     if n == 0:
         return dest
-    lib = _build.load("partition_ranks")
-    err = lib.partition_ranks(digits.data_ptr(), base.data_ptr(), n, num_bins, tile,
-                              dest.data_ptr(),
-                              *_build.launch_on(digits))
-    _build.check(lib, "partition_ranks", err)
-    LAUNCHES["partition_ranks"] += 1
+    _build.launch("partition_ranks", "partition_ranks", digits.data_ptr(), base.data_ptr(), n,
+                  num_bins, tile, dest.data_ptr(), on=digits)
     return dest
 
 
@@ -122,6 +147,24 @@ def partition_ranks(digits: torch.Tensor, num_bins: int, *, tile: int = TILE):
     else:
         dest = ref.partition_ranks(digits, num_bins)
     return dest, offsets, sizes
+
+
+@register("pass_scatter", rows="n",
+          entries={"pass_scatter": (PTR, PTR, PTR, I64, I32, I32, I32, I32, PTR, PTR, PTR, I32)},
+          config=lambda a: (PTR(a.get("dest_addr", 0)), PTR(a.get("dig_addr", 0)),
+                            PTR(a.get("perm_addr", 0)), I64(a["n"])),
+          instances=("pass_scatter<false>", "pass_scatter<true>"))
+def PASS_SCATTER(a, sms, per_sm):
+    # pass_scatter.cu, config: 1,024 threads staging chunks of 8,192 rows
+    # (destinations, permutation entries, keys), 260 counts, least
+    # destinations and offsets, 32 warp sums and a flag; vector loads where
+    # dest, the keys and perm_in lie on 16-byte boundaries
+    vec = all(a.get(k, 0) % 16 == 0 for k in ("dest_addr", "dig_addr", "perm_addr"))
+    inst = PASS_SCATTER.instances[int(vec)]
+    smem = (3 * 8192 + 3 * 260 + 32 + 1) * 4
+    fill = sms * per_sm(inst, 1024, smem)
+    return Launch("pass_scatter", inst, 1024, smem, (min(ceil_div(a["n"], 8192), fill), 1, 1),
+                  opt_in=smem)
 
 
 def pass_scatter(dest: torch.Tensor, digits: torch.Tensor, perm: torch.Tensor | None = None, *,
@@ -154,13 +197,10 @@ def pass_scatter(dest: torch.Tensor, digits: torch.Tensor, perm: torch.Tensor | 
     dig_out = torch.empty(n, dtype=torch.int32, device=dest.device)
     if n == 0:
         return perm_out, dig_out
-    lib = _build.load("pass_scatter")
-    err = lib.pass_scatter(dest.data_ptr(), digits.data_ptr(),
-                           None if perm is None else perm.data_ptr(), n, shift, bits,
-                           0 if tail_key is None else tail_key, tail_key is not None,
-                           perm_out.data_ptr(), dig_out.data_ptr(), *_build.launch_on(dest))
-    _build.check(lib, "pass_scatter", err)
-    LAUNCHES["pass_scatter"] += 1
+    _build.launch("pass_scatter", "pass_scatter", dest.data_ptr(), digits.data_ptr(),
+                  None if perm is None else perm.data_ptr(), n, shift, bits,
+                  0 if tail_key is None else tail_key, tail_key is not None,
+                  perm_out.data_ptr(), dig_out.data_ptr(), on=dest)
     return perm_out, dig_out
 
 

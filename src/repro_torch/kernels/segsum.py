@@ -11,9 +11,33 @@ from __future__ import annotations
 import torch
 
 from . import _build, ref
-from .common import LAUNCHES
+from ._build import I32, I64, PTR
+from .common import Launch, ceil_div, register
 
 TILE = 256
+
+
+@register("segsum_partials", rows="n",
+          entries={"segsum_partials": (PTR, PTR, I64, I32, I32, PTR, PTR, PTR, PTR, PTR, I32),
+                   "segsum_partials_state_words": (I64, I32)},
+          restypes={"segsum_partials_state_words": I64},
+          config=lambda a: (I64(a["n"]), I32(a.get("tile", TILE)), I32(a["key_bytes"])),
+          instances=("segsum_partials<4>", "segsum_partials<8>"),
+          # s_before (2 keys), s_first, s_next, the STAGES slots' chunk, offset,
+          # count and flag, s_handed, s_answered, s_closed, the ROW_WARPS warps'
+          # heads and flags, s_edges (CHUNK / 32 + 1 words): 232 or 240 bytes,
+          # 240 for both key widths once the compiler aligns them
+          static_smem={"segsum_partials<4>": 240, "segsum_partials<8>": 240})
+def SEGSUM_PARTIALS(a, sms, per_sm):
+    # segsum_partials.cu, config: 2 warps of row threads and the look-back
+    # warp; two buffers of 1,024 rows and 2 slots of staged partials, each
+    # padded one element every 128 bytes
+    n, tile, kb = a["n"], a.get("tile", TILE), a["key_bytes"]
+    inst = SEGSUM_PARTIALS.instances[int(kb == 8)]
+    smem = 4 * (1024 + 1024 // (128 // kb)) * kb + 6 * (1024 + 32) * 4
+    fill = sms * per_sm(inst, 96, smem)
+    return Launch("segsum_partials", inst, 96, smem,
+                  (min(ceil_div(n, 1024 // tile * tile), fill), 1, 1), opt_in=smem)
 
 
 def segsum_partials(sorted_keys: torch.Tensor, values: torch.Tensor, tile: int = TILE):
@@ -47,16 +71,13 @@ def segsum_partials(sorted_keys: torch.Tensor, values: torch.Tensor, tile: int =
     pc = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return pk, ps, pc
-    lib = _build.load("segsum_partials")
     # the kernel's scratch (a chunk ticket, n_live, a look-back word per
     # chunk), which it zeroes itself
-    state = torch.empty(lib.segsum_partials_state_words(n, tile), dtype=torch.int64,
-                        device=dev)
-    err = lib.segsum_partials(sorted_keys.data_ptr(), values.data_ptr(), n, tile,
-                              sorted_keys.element_size(), pk.data_ptr(), ps.data_ptr(),
-                              pc.data_ptr(), state.data_ptr(), *_build.launch_on(pk))
-    _build.check(lib, "segsum_partials", err)
-    LAUNCHES["segsum_partials"] += 1
+    state = torch.empty(_build.call("segsum_partials", "segsum_partials_state_words", n, tile),
+                        dtype=torch.int64, device=dev)
+    _build.launch("segsum_partials", "segsum_partials", sorted_keys.data_ptr(),
+                  values.data_ptr(), n, tile, sorted_keys.element_size(), pk.data_ptr(),
+                  ps.data_ptr(), pc.data_ptr(), state.data_ptr(), on=pk)
     n_live = int(state[1])
     if n_live < 0:
         raise ValueError("segsum_partials: sorted_keys are not sorted (a key is smaller than "

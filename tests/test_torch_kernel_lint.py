@@ -3,10 +3,14 @@
 tests/test_analysis.py's three kernel-lint tests, held to those tests'
 assertions (the JAX package's own fail on this container:
 `BlockMapping.array_shape_dtype`), the scatter discipline, the declared
-launches at J2's shapes against rows computed by hand, and the analysis
-CLI's kernels section. What only the card can show (the C side's
+launches at J2's shapes against rows computed by hand, the analysis CLI's
+kernels section, and the kernels' records (`kernels.common.register`),
+which the build, the launch counter and the lint read. What only the card
+can show (the C side's
 configurations, registers, spills) is in tests/test_torch_cuda.py."""
+import ctypes
 import json
+import types
 
 import pytest
 
@@ -17,6 +21,7 @@ from repro_torch.analysis import __main__ as analysis_cli  # noqa: E402
 from repro_torch.analysis import kernel_lint as kl  # noqa: E402
 from repro_torch.analysis.contracts import (FloatScatterViolation,  # noqa: E402
                                             GridAliasViolation, VmemBudgetViolation)
+from repro_torch.kernels import _build, common, ops  # noqa: E402
 
 # a kernel that claims output slots with an atomic: where a row lands
 # depends on the order the atomics land in
@@ -268,3 +273,84 @@ def test_analysis_cli_writes_a_kernels_section(tmp_path, capsys):
     hist = kernels["histogram.cu (source)"]
     assert hist["output_atomics"] == 1 and hist["registers"] is None
     assert "== kernels ==" in capsys.readouterr().out
+
+
+@pytest.fixture
+def throwaway():
+    """A kernel declared for one test and removed after it."""
+    def declare(a, sms, per_sm):
+        inst = rec.instances[int(a["n"] > 1024)]
+        fill = sms * per_sm(inst, 128, 50_000)
+        return kl.Launch("throwaway", inst, 128, 50_000, (min(a["n"], fill), 1, 1),
+                         opt_in=50_000)
+
+    rec = common.register("throwaway", rows="n",
+                          entries={"throwaway": (_build.PTR, _build.I64, _build.PTR, _build.I32)},
+                          config=lambda a: (_build.I64(a["n"]),),
+                          instances=("throwaway<small>", "throwaway<large>"),
+                          static_smem={"throwaway<large>": 20_000})(declare)
+    try:
+        yield rec
+    finally:
+        del common.KERNELS["throwaway"], common.LAUNCHES["throwaway"]
+
+
+def test_a_record_reaches_the_build_the_launch_counter_and_the_lint(throwaway):
+    assert common.KERNELS["throwaway"] is throwaway and throwaway.declare is not None
+    assert ops.launch_counts()["throwaway"] == 0
+    with pytest.raises(ValueError, match="declared twice"):
+        common.register("throwaway", rows="n", entries={}, config=tuple, instances=())(print)
+    # the build types the library's entry points from the record
+    entries = ("throwaway", "throwaway_func_attributes", "throwaway_instance_name",
+               "kernel_error_string")
+    lib = _build.bind(types.SimpleNamespace(**{fn: types.SimpleNamespace() for fn in entries}),
+                      "throwaway")
+    assert lib.throwaway.argtypes == (_build.PTR, _build.I64, _build.PTR, _build.I32)
+    assert lib.throwaway.restype is ctypes.c_int
+    assert lib.throwaway_func_attributes.argtypes == (_build.I32, _build.I32, _build.PTR)
+    assert lib.throwaway_instance_name.restype is ctypes.c_char_p
+    # the lint declares its launches, with its static shared memory
+    assert kl.declare("throwaway", {"n": 0}) is None
+    small, large = (kl.declare("throwaway", {"n": n}) for n in (100, 10_000))
+    assert (small.instance, small.grid, large.instance) == \
+        ("throwaway<small>", (100, 1, 1), "throwaway<large>")
+    assert kl.static_smem("throwaway<large>") == 20_000 and kl.static_smem("throwaway<small>") == 0
+    # 233,472 B an SM hold 3 blocks of 70,000 B (static and dynamic), 4 of 50,000
+    assert large.grid == (kl.SMS * 3, 1, 1) and kl.occupancy(128, 50_000) == 4
+    assert not kl.lint_launch(large).violations
+
+
+@pytest.mark.parametrize("err", [0, 1, 700])
+def test_launch_counts_only_what_returns_no_error(throwaway, monkeypatch, err):
+    """`_build.launch` on a stub library: a zero error code counts one
+    launch; any other raises KernelError naming the kernel and counts
+    nothing. The stream and the card follow the call's own arguments."""
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return err
+
+    lib = types.SimpleNamespace(throwaway=entry, kernel_error_string=lambda e: b"stub failure")
+    monkeypatch.setitem(_build._libs, "throwaway", lib)
+    monkeypatch.setattr(_build, "launch_on", lambda t: ("stream", "card"))
+    if err:
+        with pytest.raises(_build.KernelError, match=f"throwaway.*error {err} .stub failure"):
+            _build.launch("throwaway", "throwaway", 1, 2, on=None)
+    else:
+        _build.launch("throwaway", "throwaway", 1, 2, on=None)
+    assert calls == [(1, 2, "stream", "card")]
+    assert common.LAUNCHES["throwaway"] == (0 if err else 1)
+
+
+def test_every_source_has_one_record_and_every_record_its_shapes():
+    """Each csrc/*.cu (the shared header aside) is one registered kernel,
+    each kernel has its source and registered shapes, each shape names the
+    record's rows argument, and each record's launch entry is its name."""
+    sources = sorted(p.stem for p in kl.CSRC.glob("*.cu"))
+    assert sources == sorted(common.KERNELS) == sorted(kl.SHAPES)
+    assert [p.name for p in kl.CSRC.iterdir() if p.suffix != ".cu"] == ["common.cuh"]
+    for name, rec in common.KERNELS.items():
+        assert rec.name == name and name in rec.entries and rec.instances
+        assert all(rec.rows in args for _, args in kl.SHAPES[name]), name
+        assert set(rec.static_smem) <= set(rec.instances), name
