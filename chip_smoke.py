@@ -92,7 +92,10 @@
    padding's KEY_SENTINEL rows after the last partition. The partition
    plan's pass scatter runs at that padded probe side's 2^26 rows (its
    second pass), beside the two index_puts of its plain version and the
-   gather and index_put it replaced. The segmented
+   gather and index_put it replaced. The partition digits run on both
+   padded key columns (2^26 probe rows, 2^24 build rows), beside their
+   plain version, which is the chain of ATen elementwise passes they
+   replaced. The segmented
    sums must equal their plain version bit for bit (keys, sums, counts and
    the number of partials), and a second launch must give the same bytes.
    The gather has a row for each of PHJ-OM's two maps (build side, probe
@@ -213,7 +216,7 @@
    (`repro_torch.analysis.kernel_lint`): every registered shape's declared
    launch (threads, dynamic shared memory, grid) equals what the kernel's
    library says its launch would use (`<name>_launch_config`, the launch's
-   own host helper), and every compiled instance of the nine kernels fits
+   own host helper), and every compiled instance of the ten kernels fits
    the H100 (threads, shared memory, registers) and spills no more than
    `DECLARED_SPILLS` allows it (nothing, for an instance it does not name);
    one line per instance with its threads, dynamic shared memory at J2's
@@ -271,15 +274,16 @@ N_GROUPS = 15_000_000
 PAIRS = 21
 AGGS = {"s1": "sum", "r1": "max", "r2": "count"}
 # the partition plan runs 3 passes per join side (2^18 + 1 partitions) and
-# 2 for the group-by (2^16 + 1, top partition as a tail class); one probe;
-# one gather per payload column
+# 2 for the group-by (2^16 + 1, top partition as a tail class); the join's
+# digits once a side; one probe; one gather per payload column
 EXPECTED_LAUNCHES = {"block_histograms": 8, "partition_ranks": 8, "pass_scatter": 8,
-                     "hash_probe": 1,
+                     "partition_digits": 2, "hash_probe": 1,
                      "clustered_gather": 4, "lower_bound": 0, "histogram": 0}
 # the group-join: the same two plans as the join, one fused probe pass, no
 # gather and no group-by partition
 GJ_AGGS = {"s1": "sum", "r1": "sum", "r2": "count"}
-GJ_LAUNCHES = {"block_histograms": 6, "partition_ranks": 6, "pass_scatter": 6, "hash_probe": 0,
+GJ_LAUNCHES = {"block_histograms": 6, "partition_ranks": 6, "pass_scatter": 6,
+               "partition_digits": 2, "hash_probe": 0,
                "clustered_gather": 0, "probe_agg": 1, "segsum_partials": 0,
                "lower_bound": 0, "histogram": 0}
 # sort_pallas with a sum and a count: the hoisted count pass and one pass
@@ -387,11 +391,12 @@ FAMILY_CPU_LOGIT_RTOL = {"hybrid": 1e-3, "vlm": 1e-2, "audio": 1e-2}
 # vocabulary
 PIPE_USERS, PIPE_ITEMS, PIPE_PARAMS = 4_194_304, 1_048_576, 133_158_192
 PIPE_BATCH, PIPE_SEQ, PIPE_STEPS = 8, 512, 10
-# per step: two joins; each plans both sides in 2 passes (2^16 + 1
-# partitions for U, the top one a tail class; 2^14 + 1 for I), probes once
-# and gathers each payload column: U's 3 and the probe side's 1, then I's 3
-# and the probe side's 4
-PIPE_LAUNCHES = {"block_histograms": 8, "partition_ranks": 8, "pass_scatter": 8, "hash_probe": 2,
+# per step: two joins; each takes both sides' digits and plans them in 2
+# passes (2^16 + 1 partitions for U, the top one a tail class; 2^14 + 1 for
+# I), probes once and gathers each payload column: U's 3 and the probe
+# side's 1, then I's 3 and the probe side's 4
+PIPE_LAUNCHES = {"block_histograms": 8, "partition_ranks": 8, "pass_scatter": 8,
+                 "partition_digits": 4, "hash_probe": 2,
                  "clustered_gather": 11, "probe_agg": 0, "segsum_partials": 0,
                  "lower_bound": 0, "histogram": 0}
 # the vision and audio cells, served in bf16 as (u) serves, with 8 requests:
@@ -412,6 +417,8 @@ KERNEL_REPLACES = {
     "lower_bound": "src/repro/kernels/merge_join.py:43",
     "histogram": "src/repro/kernels/histogram.py:34",
     "pass_scatter": "none: the LSD passes' ATen index and index_put glue",
+    "partition_digits": "none: hash_join._digits' ATen elementwise chain (one XLA fusion "
+                        "in the reference)",
 }
 
 
@@ -1926,6 +1933,7 @@ def main() -> None:
     from repro_torch.core.table import Table
     from repro_torch.data.relgen import _payload, generate_star, generate_tpc
     from repro_torch.kernels import _build, common, ops, ref
+    from repro_torch.kernels import digits as kdigits
     from repro_torch.kernels import gather as kgather
     from repro_torch.kernels import hash_probe as kprobe
     from repro_torch.kernels import histogram as khist
@@ -2315,9 +2323,10 @@ def main() -> None:
     del Tc, Tm
 
     req_cap = -(-m // 64) * 64
+    # the digits also feed each attempt's overflow check
     ((Gc, gcc), rep), _ = run_path("j2_groupjoin_checked", lambda: groupjoin_checked(
         R, S, key="k", group_key="k", aggs=GJ_AGGS, num_groups=N_GROUPS // 4,
-        with_report=True), GJ_LAUNCHES)
+        with_report=True), {k: v for k, v in GJ_LAUNCHES.items() if k != "partition_digits"})
     check(rep.final_knobs["num_groups"] == req_cap and rep.steps_applied == {"num_groups": 1},
           f"groupjoin_checked: {rep.summary()} {rep.final_knobs}, expected capacity {req_cap}")
     check(int(gcc) == m and Gc.num_rows == req_cap, "groupjoin_checked: groups differ")
@@ -2372,7 +2381,7 @@ def main() -> None:
             yield from plan_nodes(c)
 
     def check_plan_launches(name, plan, got, checked=False, reports=()):
-        """Each node's kernels: a PHJ join launches the plan passes, one probe
+        """Each node's kernels: a PHJ join launches its digits, the plan passes, one probe
         per pk_fk join and, for GFTR, gathers; a checked run's PHJ join may
         take the ladder's SMJ rung, and each report that ends there trades
         a probe for a lower bound; an SMJ pk_fk join one lower bound; a
@@ -2388,16 +2397,18 @@ def main() -> None:
                 need[k] = need.get(k, 0) + 1
 
         plan_passes = ("block_histograms", "partition_ranks", "pass_scatter")
+        # a PHJ node's digits, then its plan passes
+        phj_plans = ("partition_digits",) + plan_passes
         for node in plan_nodes(plan.root):
             if isinstance(node, PH.PJoin) and node.algorithm == "phj":
-                add(plan_passes + ("hash_probe", "clustered_gather")
+                add(phj_plans + ("hash_probe", "clustered_gather")
                     + (("lower_bound",) if checked else ()),
-                    plan_passes + (("hash_probe",) if node.mode == "pk_fk" else ())
+                    phj_plans + (("hash_probe",) if node.mode == "pk_fk" else ())
                     + (("clustered_gather",) if node.pattern == "gftr" else ()))
             elif isinstance(node, PH.PJoin) and node.algorithm == "smj":
                 add(("lower_bound",), ("lower_bound",) if node.mode == "pk_fk" else ())
             elif isinstance(node, PH.PGroupJoin):
-                add(plan_passes + ("hash_probe",), plan_passes + ("hash_probe",))
+                add(phj_plans + ("hash_probe",), phj_plans + ("hash_probe",))
             if isinstance(node, (PH.PGroupBy, PH.PGroupJoin)):
                 strategy = getattr(node, "strategy", None) or node.agg_strategy
                 if strategy == "partition":
@@ -2881,7 +2892,18 @@ def main() -> None:
            served_bytes, live_build + n_s, plain_reps=3,
            shape=f"3s: {n_s + pad_s} probe rows, {pad_s} after the last of {P} partitions, "
                  f"against {n_r + pad_r} build rows")
-    del vid, hit, served_args, kr_pad, perm, off, sz
+    del vid, hit, served_args, perm, off, sz
+
+    # the partition digits of both padded key columns (2^26 probe rows, 2^24
+    # build rows), int32 keys: 8 bytes a row. The plain version is the chain
+    # of ATen elementwise passes over int64 copies that the kernel replaced
+    for k in (ks_pad, kr_pad):
+        record("partition_digits", [kdigits.partition_digits(k, p_bits)],
+               [ref.partition_digits(k, p_bits, True)],
+               lambda k=k: kdigits.partition_digits(k, p_bits),
+               lambda k=k: ref.partition_digits(k, p_bits, True), None, 8 * k.shape[0],
+               shape=f"{k.shape[0]} int32 keys, {p_bits} bits: a served side's digits")
+    del kr_pad
 
     # the pass's scatter at the served probe side's 2^26 rows: the plan's
     # second pass (bits 8-15 of the digits in the order the first left), which

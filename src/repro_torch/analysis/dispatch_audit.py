@@ -66,8 +66,7 @@ INDEX_OPS = frozenset({"sort", "argsort", "topk", "kthvalue", "nonzero", "bincou
 # no unsigned 32-bit arithmetic, so the hash and the radix digits of int32
 # keys take their uint32 bits in int64; scatter_reduce takes int64 indices.
 DELIBERATE_WIDENINGS = {
-    ("hash_join.py", "hash32"): "uint32 hash arithmetic in int64",
-    ("hash_join.py", "_digits"): "uint32 bits of the keys in int64",
+    ("ref.py", "hash32"): "uint32 hash arithmetic in int64",
     ("primitives.py", "radix_digits"): "uint32 bits of the keys in int64",
     ("groupby.py", "_min_max_segments"): "scatter_reduce takes int64 indices",
     ("nphj.py", "build_table"): "scatter_reduce takes int64 indices",

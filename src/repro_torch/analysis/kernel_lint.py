@@ -360,6 +360,19 @@ def _shapes():
     add("histogram", "edge: 0 rows", n=0, num_bins=256)
     add("histogram", "edge: 1 row", n=1, num_bins=256)
 
+    add("partition_digits", "J2: S's 60M int32 join keys", n=J2_S, key_bytes=4)
+    add("partition_digits", "served: a probe side's 2^26 int32 keys", n=1 << 26, key_bytes=4)
+    add("partition_digits", "pipeline: U's 4,194,304 int32 keys", n=PIPE_U, key_bytes=4)
+    add("partition_digits", "edge: int64 keys", n=J2_S, key_bytes=8)
+    for kb in (4, 8):
+        add("partition_digits", f"edge: {kb}-byte keys off a 16-byte boundary (row by row)",
+            n=J2_S, key_bytes=kb, keys_addr=kb)
+        add("partition_digits", f"edge: {kb}-byte keys and digits off a 16-byte boundary, "
+            "on one after a head of 3", n=J2_S, key_bytes=kb, keys_addr=kb, out_addr=4)
+    add("partition_digits", "edge: 3 rows (no whole vector)", n=3, key_bytes=4)
+    add("partition_digits", "edge: 0 rows", n=0, key_bytes=4)
+    add("partition_digits", "edge: 1 row", n=1, key_bytes=4)
+
     add("pass_scatter", "J2: S's plan passes, 60M rows", n=J2_S)
     add("pass_scatter", "served: a probe side's plan passes, 2^26 rows", n=1 << 26)
     add("pass_scatter", "MoE routing: 32 digits", n=32)

@@ -24,38 +24,12 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops as kops
+from ..kernels.ref import hash32  # noqa: F401  (re-exported: the hash's plain version)
 from ..resilience import EscalationStep, Ladder
 from . import primitives as prim
 from .phases import phase
 from .sort_merge import MODES, smj_join
 from .table import KEY_SENTINEL, Table, nonempty
-
-_U32 = 0xFFFFFFFF
-
-
-def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2^32 for x in [0, 2^32) held in int64. The constant is
-    split into 16-bit halves so no product leaves int64's range."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _U32
-
-
-def hash32(x: torch.Tensor) -> torch.Tensor:
-    """Murmur3-style finalizer; avalanches all input bits into 32. Returns
-    the uint32 hash as int64 values in [0, 2^32)."""
-    if x.dtype.is_floating_point or x.dtype == torch.bool:
-        raise TypeError(f"hash32 takes integer keys, got {x.dtype}")
-    wide = x.element_size() > 4
-    x = x.to(torch.int64)
-    x = (x ^ (x >> 32) if wide else x) & _U32
-    x = x ^ (x >> 16)
-    x = _mul_u32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul_u32(x, 0x846CA68B)
-    x = x ^ (x >> 16)
-    return x
-
 
 # default build block: the rows of a build partition that can match
 BUILD_BLOCK = 256
@@ -70,10 +44,11 @@ def choose_partition_bits(n_build: int, build_block: int) -> int:
 def _digits(keys: torch.Tensor, p_bits: int, hash_keys: bool) -> torch.Tensor:
     """Partition digit per row, in [0, 2^p_bits]: valid keys spread over
     [0, P) by the hash; KEY_SENTINEL rows go to their own partition P so they
-    can never crowd valid keys out of a shared build block."""
-    h = hash32(keys) if hash_keys else keys.to(torch.int64) & _U32
-    d = (h & ((1 << p_bits) - 1)).to(torch.int32)
-    return torch.where(keys == KEY_SENTINEL, 1 << p_bits, d)
+    can never crowd valid keys out of a shared build block. One launch of
+    the partition_digits kernel on the card (`kops.partition_digits`); the
+    digits take the partition plan's arm (`REPRO_PARTITION_PLAN_IMPL`),
+    whose first step they are."""
+    return kops.partition_digits(keys, p_bits, hash_keys, kops.partition_plan_impl())
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain PyTorch
 versions, for the paper's hot spots on the join and group-by path:
 
+  digits           partition digits of join keys (hash, mask, sentinel bin)
   histogram        global digit histogram
   radix_partition  per-tile digit histograms, stable partition ranks and
                    each pass's scatter of the permutation and its keys,
@@ -18,6 +19,7 @@ Sources live in `repro_torch/csrc/`, are compiled by nvcc at first use
 tensor the plain version in `ref`.
 """
 from . import histogram, ops, ref  # histogram: the module (its kernel is histogram.histogram)
+from .digits import partition_digits
 from .gather import clustered_gather
 from .hash_probe import layout_probe_blocks, probe_agg
 from .merge_join import lower_bound
@@ -26,6 +28,7 @@ from .segsum import segsum_partials
 
 __all__ = [
     "ops", "ref", "histogram",
+    "partition_digits",
     "block_histograms", "partition_ranks", "partition_plan", "sort_plan_radix",
     "lower_bound",
     "layout_probe_blocks", "probe_agg",

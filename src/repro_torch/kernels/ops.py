@@ -1,9 +1,10 @@
 """Dispatch between the hand-written kernels and their plain arms.
 
-The partition plan, the hash probe, the gather, the merge lower bound and
-the histogram take `impl` in {"torch", "cuda"} or None. None resolves by
-the tensor's device: a CUDA tensor gets the kernel, a CPU tensor the plain
-arm; "cuda" on a CPU tensor raises (`common.resolve_impl`). The group-join's probe-aggregate and the
+The partition digits, the partition plan, the hash probe, the gather, the
+merge lower bound and the histogram take `impl` in {"torch", "cuda"} or
+None. None resolves by the tensor's device: a CUDA tensor gets the kernel,
+a CPU tensor the plain arm; "cuda" on a CPU tensor raises
+(`common.resolve_impl`). The group-join's probe-aggregate and the
 sorted group sums have one arm, the kernel wrapper, which runs the
 kernel's plain version for CPU tensors. Whatever a kernel arm raises (a
 wrapper's rejection of its inputs, a failed build or launch, an error the
@@ -19,6 +20,7 @@ import os
 import torch
 
 from ..obs import trace as _trace
+from . import digits as _digits
 from . import gather as _gather
 from . import histogram as _histogram
 from . import merge_join as _merge_join
@@ -32,8 +34,9 @@ from .hash_probe import probe_agg as _probe_agg_kernel
 from .radix_partition import partition_plan as _partition_plan_radix
 
 # Arm of the partition planner that `core.primitives` resolves impl=None
-# through. Unset: by device. Read and validated per call, so an unknown value
-# raises instead of silently running another arm.
+# through, and of the join's partition digits that feed it
+# (`core.hash_join._digits`). Unset: by device. Read and validated per call,
+# so an unknown value raises instead of silently running another arm.
 PARTITION_PLAN_ENV = "REPRO_PARTITION_PLAN_IMPL"
 
 
@@ -83,6 +86,25 @@ def histogram(digits: torch.Tensor, num_bins: int, impl: str | None = None) -> t
             with _kernel_arm("histogram"):
                 return _histogram.histogram(digits, num_bins)
         return ref.histogram(digits, num_bins)
+
+
+# ---------------------------------------------------------------------------
+# partition digits
+# ---------------------------------------------------------------------------
+def partition_digits(keys: torch.Tensor, p_bits: int, hash_keys: bool = True,
+                     impl: str | None = None) -> torch.Tensor:
+    """Partition digit per row, int32 in [0, 2^p_bits]: 2^p_bits for
+    KEY_SENTINEL rows, else the low p_bits of hash32 of the key (of its low
+    32 bits where not hash_keys). Keys that are not integers raise
+    TypeError and a p_bits past 30 ValueError, on either arm.
+    impl='cuda': one launch of the partition_digits kernel; 'torch': its
+    plain version (hash32's uint32 arithmetic in int64)."""
+    _digits.check(keys, p_bits)
+    with kernel_call("partition_digits"):
+        if resolve_impl(impl, keys) == "cuda":
+            with _kernel_arm("partition_digits"):
+                return _digits.partition_digits(keys, p_bits, hash_keys)
+        return ref.partition_digits(keys, p_bits, hash_keys)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,41 @@ import torch
 
 from .common import KEY_SENTINEL, ceil_div
 
+_U32 = 0xFFFFFFFF
+
+
+def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for x in [0, 2^32) held in int64. The constant is
+    split into 16-bit halves so no product leaves int64's range."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def hash32(x: torch.Tensor) -> torch.Tensor:
+    """Murmur3-style finalizer; avalanches all input bits into 32. Returns
+    the uint32 hash as int64 values in [0, 2^32)."""
+    if x.dtype.is_floating_point or x.dtype == torch.bool:
+        raise TypeError(f"hash32 takes integer keys, got {x.dtype}")
+    wide = x.element_size() > 4
+    x = x.to(torch.int64)
+    x = (x ^ (x >> 32) if wide else x) & _U32
+    x = x ^ (x >> 16)
+    x = _mul_u32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul_u32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x
+
+
+def partition_digits(keys: torch.Tensor, p_bits: int, hash_keys: bool) -> torch.Tensor:
+    """Partition digit per row, int32 in [0, 2^p_bits] (the
+    partition_digits kernel): 2^p_bits for KEY_SENTINEL rows, else the low
+    p_bits of hash32 of the key (of its low 32 bits where not hash_keys)."""
+    h = hash32(keys) if hash_keys else keys.to(torch.int64) & _U32
+    d = (h & ((1 << p_bits) - 1)).to(torch.int32)
+    return torch.where(keys == KEY_SENTINEL, 1 << p_bits, d)
+
 
 def block_histograms(digits: torch.Tensor, num_bins: int, tile: int) -> torch.Tensor:
     """(ceil(n / tile), num_bins) int32 digit counts per tile of `tile`

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 import repro_torch.core as T  # noqa: E402
 from repro_torch.core import hash_join as thj  # noqa: E402
 from repro_torch.data import relgen  # noqa: E402
+from repro_torch.kernels import digits as kdigits  # noqa: E402
 from repro_torch.kernels import gather as kgather  # noqa: E402
 from repro_torch.kernels import hash_probe as kprobe  # noqa: E402
 from repro_torch.kernels import histogram as khist  # noqa: E402
@@ -79,6 +80,80 @@ def test_pass_scatter_kernel_equals_plain(dev, n, first, ranked):
         want = ref.pass_scatter(dest, k, perm)
         for g, w in zip(got, want):
             assert g.dtype == torch.int32 and torch.equal(g, w)
+
+
+# rows of the digit tests: none, one, fewer than a vector, a vector and one
+# more, a count off the vectors, and a served probe side's 2^26
+DIGIT_ROWS = [0, 1, 3, 5, 1_000_003, 1 << 26]
+
+
+@pytest.mark.parametrize("n", DIGIT_ROWS)
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("hash_keys", [True, False])
+def test_partition_digits_kernel_equals_plain(dev, n, key_dtype, hash_keys):
+    """The digits bit for bit against their plain version: random keys over
+    the whole range, every seventh KEY_SENTINEL, the type's extremes; views
+    that start 0-3 elements into the column (off their 16-byte boundary:
+    the scalar instance); p_bits 1, 18 and 30; one launch a call."""
+    info = torch.iinfo(key_dtype)
+    g = torch.Generator(dev).manual_seed(n)
+    keys = torch.randint(info.min, info.max, (n + 3,), generator=g, dtype=key_dtype, device=dev)
+    keys[::7] = -1
+    edges = torch.tensor([0, 1, -2, info.min, info.max, 1 << 31, -(1 << 31) - 1][
+        :5 if key_dtype == torch.int32 else 7], dtype=key_dtype, device=dev)
+    m = min(edges.shape[0], n + 2)
+    keys[1:1 + m] = edges[:m]
+    for off in range(4):
+        k = keys[off:off + n]
+        for p_bits in (1, 18, 30):
+            before = ops.launch_counts()["partition_digits"]
+            got = kdigits.partition_digits(k, p_bits, hash_keys)
+            assert ops.launch_counts()["partition_digits"] == before + (n > 0)
+            assert got.dtype == torch.int32 and got.is_cuda
+            assert torch.equal(got, ref.partition_digits(k, p_bits, hash_keys)), (off, p_bits)
+
+
+def test_partition_digits_reject_on_the_card(dev):
+    """Float keys raise TypeError and a p_bits past 30 ValueError before any
+    arm; a shape or a key width the kernel does not take raises TypeError
+    in the wrapper, which the dispatch hands on as a KernelError."""
+    keys = torch.arange(100, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        ops.partition_digits(keys.float(), 8)
+    with pytest.raises(ValueError):
+        ops.partition_digits(keys, 31)
+    for bad in (keys.reshape(10, 10), keys.to(torch.int16)):
+        with pytest.raises(TypeError):
+            kdigits.partition_digits(bad, 8)
+        with pytest.raises(ops.KernelError):
+            ops.partition_digits(bad, 8)
+
+
+def test_phj_join_and_groupjoin_digits_kernel_equals_torch_arm(dev, monkeypatch):
+    """A PHJ-OM join and a fused group-join at J2 scale 1/16 (937,500 x
+    3,750,000 rows) with the digits from the kernel (one launch a side of
+    each node) and from its torch arm: the same rows and groups, bit for
+    bit."""
+    R, S, _ = relgen.generate_tpc("J2", scale=1 / 16, payload_bytes=8)
+    Rt, St = T.table_from_numpy(R, device=dev), T.table_from_numpy(S, device=dev)
+    aggs = {"s1": "sum", "r1": "sum", "r2": "count"}
+    kernel_arm = ops.partition_digits
+    runs = {}
+    for arm in ("cuda", "torch"):
+        if arm == "torch":
+            monkeypatch.setattr(ops, "partition_digits",
+                                lambda k, p, h=True, impl=None: kernel_arm(k, p, h, "torch"))
+        ops.reset_launch_counts()
+        J, jc = T.phj_join(Rt, St)
+        G, gc = T.phj_groupjoin(Rt, St, key="k", group_key="k", aggs=aggs,
+                                num_groups=R["k"].shape[0])
+        assert ops.launch_counts()["partition_digits"] == (4 if arm == "cuda" else 0)
+        runs[arm] = (J, int(jc), G, int(gc))
+    (J0, c0, G0, g0), (J1, c1, G1, g1) = runs["cuda"], runs["torch"]
+    assert c0 == c1 == S["k"].shape[0] and g0 == g1 > 0
+    for a, b in ((J0, J1), (G0, G1)):
+        for name in a.column_names:
+            assert torch.equal(a[name], b[name]), name
 
 
 # (partitions, passes): one pass without and with the tail class, two
@@ -1137,7 +1212,7 @@ def test_block_histograms_kernel_one_digit(dev):
 # every kernel launches on the card that holds its tensors
 # ---------------------------------------------------------------------------
 def test_kernels_launch_on_their_tensors_card(dev):
-    """Each of the nine kernels on tensors of cuda:1 while cuda:0 is the
+    """Each of the ten kernels on tensors of cuda:1 while cuda:0 is the
     current card, against its plain version on the same tensors; the
     current card is left as it was."""
     if torch.cuda.device_count() < 2:
@@ -1175,6 +1250,8 @@ def test_kernels_launch_on_their_tensors_card(dev):
                       lambda: ref.histogram(digits, 256)),
         "pass_scatter": (lambda: krp.pass_scatter(dest, digits, dest),
                          lambda: ref.pass_scatter(dest, digits, dest)),
+        "partition_digits": (lambda: kdigits.partition_digits(digits, 18),
+                             lambda: ref.partition_digits(digits, 18, True)),
     }
     assert sorted(calls) == sorted(ops.launch_counts())
     with torch.cuda.device(0):
@@ -1604,9 +1681,9 @@ def test_family_on_card_equals_cpu(dev, arch):
 def test_pipeline_on_card_equals_cpu_and_launches_its_kernels(dev):
     """The default pipeline tables (4,096 users, 8,192 items) and a batch of
     2 x 64 events: the tokens and every joined column on the card equal the
-    CPU's; each assemble_batch plans each side of its two joins in one pass
-    (2^6 + 1 and 2^7 + 1 partitions), probes twice and gathers 3 + 1 and
-    3 + 4 payload columns."""
+    CPU's; each assemble_batch takes the digits of each side of its two
+    joins, plans each in one pass (2^6 + 1 and 2^7 + 1 partitions), probes
+    twice and gathers 3 + 1 and 3 + 4 payload columns."""
     from repro_torch.data.pipeline import (FeatureJoinConfig, assemble_batch,
                                            history_aggregates, make_dim_tables,
                                            make_fact_batch)
@@ -1633,7 +1710,7 @@ def test_pipeline_on_card_equals_cpu_and_launches_its_kernels(dev):
     torch.testing.assert_close(card[3]["label_mean"][:n].cpu(), host[3]["label_mean"][:n],
                                rtol=1e-6, atol=0)
     assert card[5] == dict.fromkeys(card[5], 0) | {"block_histograms": 4, "partition_ranks": 4,
-                                                   "pass_scatter": 4,
+                                                   "pass_scatter": 4, "partition_digits": 4,
                                                    "hash_probe": 2, "clustered_gather": 11}
     assert not any(host[5].values())
 

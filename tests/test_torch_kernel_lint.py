@@ -157,7 +157,7 @@ def test_comments_are_not_atomics():
 
 def test_production_kernels_lint_clean():
     """test_production_kernels_lint_clean's counterpart: every registered
-    shape of all nine kernels, every instance a launch can pick, every
+    shape of all ten kernels, every instance a launch can pick, every
     source; no violation, and histogram's declared accumulation counts."""
     reports = kl.lint_production_kernels()
     assert reports, "registry must cover the production kernels"
@@ -165,7 +165,7 @@ def test_production_kernels_lint_clean():
         assert not rep.violations, (rep.name, rep.violations)
         assert rep.dynamic_smem + rep.static_smem <= kl.LIMITS["smem_per_block"]
     launched = [r for r in reports if r.launched]
-    assert {r.kernel for r in launched} == set(kl.KERNELS) and len(kl.KERNELS) == 9
+    assert {r.kernel for r in launched} == set(kl.KERNELS) and len(kl.KERNELS) == 10
     assert {r.instance for r in launched} == {i for k in kl.KERNELS for i in kl.INSTANCES[k]}
     sources = {r.kernel: r for r in reports if r.instance == "source"}
     assert set(kl.KERNELS) <= set(sources)
@@ -242,6 +242,9 @@ def test_declared_launches_at_j2_equal_hand_computed_rows():
         # chunks of 8,192 rows staged as 3 x 8,192 words, 3 x 260 counts,
         # least destinations and offsets, 32 warp sums and a flag; 7,325 chunks
         "pass_scatter": (dict(n=n), ("pass_scatter<true>", 1024, (3 * 8192 + 813) * 4, fill)),
+        # int32 keys, aligned: 16 rows a thread, a block for every 4,096 rows
+        "partition_digits": (dict(n=n, key_bytes=4),
+                             ("partition_digits<4, true>", 256, 0, 14_649)),
     }
     assert tiles == 58_594
     for kernel, (args, want) in rows.items():

@@ -32,6 +32,7 @@ from repro_torch.core import Table as TTable  # noqa: E402
 from repro_torch.core import groupby as tgb  # noqa: E402
 from repro_torch.core import hash_join as thj  # noqa: E402
 from repro_torch.core import primitives as tprim  # noqa: E402
+from repro_torch.kernels import digits as tdigits  # noqa: E402
 from repro_torch.kernels import gather as tgather  # noqa: E402
 from repro_torch.kernels import hash_probe as thp  # noqa: E402
 from repro_torch.kernels import histogram as thist  # noqa: E402
@@ -86,14 +87,66 @@ def test_hash32_bit_exact(dtype):
         np.testing.assert_array_equal(got.numpy(), _np_hash32(x))
 
 
-@pytest.mark.parametrize("p_bits,hash_keys", [(1, True), (6, True), (18, True), (6, False)])
-def test_digits_bit_exact(p_bits, hash_keys):
-    rng = np.random.default_rng(p_bits)
-    keys = rng.integers(-1, 1 << 30, 50_000).astype(np.int32)
+def _digit_keys(dtype, seed):
+    """50,000 keys of `dtype`: every seventh KEY_SENTINEL, the rest random
+    over the whole range, and the type's extremes (and INT32's, in int64)."""
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(dtype)
+    keys = rng.integers(info.min, info.max, 50_000, dtype=dtype, endpoint=True)
     keys[::7] = -1  # sentinel rows go to partition P
-    got = thj._digits(_t(keys), p_bits, hash_keys)
-    assert got.dtype == torch.int32
-    _eq(jhj._digits(jnp.asarray(keys), p_bits, hash_keys), got)
+    edges = [0, 1, -2, info.min, info.max, info.min + 1, info.max - 1]
+    if dtype == np.int64:
+        i32 = np.iinfo(np.int32)
+        edges += [i32.min, i32.max, 1 << 32, (1 << 32) - 1, -(1 << 32)]
+    keys[1:1 + len(edges)] = edges
+    return keys
+
+
+def _np_digits(keys, p_bits, hash_keys):
+    """The digit formula in numpy's uint32 arithmetic: 2^p_bits for -1, else
+    the low p_bits of hash32 of the key (an int64 key's words folded first;
+    its low 32 bits, unhashed)."""
+    low = keys.astype(np.int64) & 0xFFFFFFFF
+    h = _np_hash32(keys if keys.dtype == np.int64 else low) if hash_keys else low
+    return np.where(keys == -1, 1 << p_bits, h & ((1 << p_bits) - 1)).astype(np.int32)
+
+
+@pytest.mark.parametrize("p_bits,hash_keys", [(b, h) for h in (True, False)
+                                              for b in (1, 6, 8, 18, 20)])
+def test_digits_bit_exact(p_bits, hash_keys):
+    """The partition digits' plain version (`ref.partition_digits`, which
+    `_digits` and `ops.partition_digits` run on the CPU) against the JAX
+    package's `_digits` on int32 keys, and on int64 keys, which the
+    reference (32-bit integers) cannot take, against the formula in numpy."""
+    for dtype in (np.int32, np.int64):
+        keys = _digit_keys(dtype, p_bits)
+        got = thj._digits(_t(keys), p_bits, hash_keys)
+        assert got.dtype == torch.int32
+        assert torch.equal(got, tref.partition_digits(_t(keys), p_bits, hash_keys))
+        assert torch.equal(got, tops.partition_digits(_t(keys), p_bits, hash_keys))
+        np.testing.assert_array_equal(got.numpy(), _np_digits(keys, p_bits, hash_keys))
+        assert int((got == 1 << p_bits).sum()) == int((keys == -1).sum())
+        if dtype == np.int32:
+            _eq(jhj._digits(jnp.asarray(keys), p_bits, hash_keys), got)
+
+
+@pytest.mark.parametrize("how", ["float keys", "bool keys", "p_bits 31", "p_bits -1"])
+def test_partition_digits_reject_what_no_int32_digit_holds(how):
+    """Keys that are not integers raise TypeError and a p_bits whose
+    sentinel digit 2^p_bits no int32 holds raises ValueError, in `_digits`
+    and in the wrapper, before any arm runs."""
+    keys, p_bits = torch.arange(8, dtype=torch.int32), 4
+    if how == "float keys":
+        keys = keys.float()
+    elif how == "bool keys":
+        keys = keys > 3
+    else:
+        p_bits = int(how.split()[1])
+    err = TypeError if how.endswith("keys") else ValueError
+    for fn in (thj._digits, tdigits.partition_digits):
+        for hash_keys in (True, False):
+            with pytest.raises(err):
+                fn(keys, p_bits, hash_keys)
 
 
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
